@@ -1,0 +1,11 @@
+"""PyTorch + CUDA port of the RevFFN reproduction (``repro``).
+
+The JAX package ``repro`` is the reference; this package mirrors its module
+names and layout so each piece has an obvious counterpart.  It imports
+``torch`` and ``numpy`` only — never ``jax`` and nothing from ``repro``.
+
+Slice 1 covers paged serving of qwen2-moe-a2.7b: configs, param specs, the
+decode paths of the dense/MoE blocks, the sort-based MoE dispatch with a
+hand-written CUDA grouped GEMM, the paged-attention CUDA kernel, sampling,
+the paged continuous-batching engine and its launcher.
+"""

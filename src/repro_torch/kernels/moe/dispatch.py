@@ -1,0 +1,107 @@
+"""Sort-based dropless token dispatch for MoE (port of
+``repro.kernels.moe.dispatch``).
+
+Stable-argsort the (token, k) assignments by expert id, gather tokens into
+expert-contiguous rows, run one ragged grouped GEMM per projection, and
+scatter-add the results back under the gate weights.  Each expert's run of
+sorted rows is padded to a multiple of ``block_m`` so every ``block_m``-row
+tile belongs to exactly one expert; padding rows are zero and compute zero.
+
+Everything stays on the tensors' device — no host sync: the padded buffer
+size ``m_pad`` is the static worst case ``T*k + E*(block_m-1)`` rounded up,
+and the number of tiles that hold rows at all (``n_used_tiles``) is a device
+int32 the CUDA kernel reads to skip the dead tail.
+"""
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+
+def round_up(n: int, m: int) -> int:
+    return -(-n // m) * m
+
+
+class DispatchPlan(NamedTuple):
+    """Index state of one sorted dispatch (all int tensors).
+
+    order:        (T*k,)  assignment slots sorted stably by expert id
+    dest:         (T*k,)  destination row of each sorted slot in the padded
+                          expert-contiguous buffer
+    tile_expert:  (m_pad / block_m,) int32 expert id owning each tile
+    group_sizes:  (E,)    real (unpadded) rows per expert
+    m_pad:        int     padded row count (multiple of block_m)
+    block_m:      int
+    top_k:        int
+    n_used_tiles: (1,) int32 tiles below sum(padded group sizes); every
+                  tile at or past it is all padding
+    """
+    order: torch.Tensor
+    dest: torch.Tensor
+    tile_expert: torch.Tensor
+    group_sizes: torch.Tensor
+    m_pad: int
+    block_m: int
+    top_k: int
+    n_used_tiles: torch.Tensor
+
+
+def make_plan(expert_idx, num_experts: int, block_m: int) -> DispatchPlan:
+    """expert_idx: (T, k) int — top-k expert assignment per token."""
+    T, k = expert_idx.shape
+    M = T * k
+    dev = expert_idx.device
+    m_pad = round_up(M + num_experts * (block_m - 1), block_m)
+
+    flat_e = expert_idx.reshape(M).to(torch.int64)
+    order = torch.sort(flat_e, stable=True).indices
+    sorted_e = flat_e[order]
+
+    sizes = torch.bincount(flat_e, minlength=num_experts)
+    padded = (sizes + block_m - 1) // block_m * block_m
+    zero = torch.zeros(1, dtype=torch.int64, device=dev)
+    pstart = torch.cat([zero, torch.cumsum(padded, 0)])[:num_experts]
+    start = torch.cat([zero, torch.cumsum(sizes, 0)])[:num_experts]
+
+    rank = torch.arange(M, device=dev) - start[sorted_e]
+    dest = pstart[sorted_e] + rank
+
+    n_tiles = m_pad // block_m
+    tile_row0 = torch.arange(n_tiles, device=dev) * block_m
+    # largest e with pstart[e] <= tile_row0; empty experts (duplicate starts)
+    # resolve to the following non-empty one, trailing tiles clamp to E-1
+    tile_expert = torch.clamp(
+        torch.searchsorted(pstart, tile_row0, right=True) - 1,
+        0, num_experts - 1).to(torch.int32)
+    n_used = (padded.sum() // block_m).to(torch.int32).reshape(1)
+
+    return DispatchPlan(order=order, dest=dest, tile_expert=tile_expert,
+                        group_sizes=sizes, m_pad=m_pad, block_m=block_m,
+                        top_k=k, n_used_tiles=n_used)
+
+
+def permute(x, plan: DispatchPlan):
+    """x: (T, d) -> (m_pad, d), rows grouped by expert (zeros in padding).
+    A token routed to k experts contributes k gathered copies."""
+    src = plan.order // plan.top_k
+    out = torch.zeros((plan.m_pad, x.shape[1]), dtype=x.dtype, device=x.device)
+    out[plan.dest] = x[src]
+    return out
+
+
+def combine(ys, gates, plan: DispatchPlan, num_tokens: int):
+    """ys: (m_pad, d), gates: (T, k) -> y: (T, d).
+
+    Gathers each slot's expert output back out of the padded buffer and
+    adds it into its token row under the gate weight, accumulating the k
+    contributions in f32 and rounding once.  On CUDA ``index_add_`` adds in
+    a nondeterministic order: results agree to f32 rounding (~1e-7
+    relative), not bit for bit.
+    """
+    g_sorted = gates.reshape(-1)[plan.order]
+    contrib = ys[plan.dest].float() * g_sorted[:, None].float()
+    out = torch.zeros((num_tokens, ys.shape[1]), dtype=torch.float32,
+                      device=ys.device)
+    out.index_add_(0, plan.order // plan.top_k, contrib)
+    return out.to(ys.dtype)

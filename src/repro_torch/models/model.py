@@ -1,0 +1,291 @@
+"""The dense/MoE reversible model on its serving (decode) paths — port of
+``repro.models.model``.
+
+Each layer is a reversible unit over the two feature streams (RevFFN):
+y1 = x1 + F(x1, x2) with F the cross-branch attention (Q from stream 1,
+K/V from stream 2, through the P_up/P_down adapters), then y2 = x2 + G(y1)
+with G the MoE (or MLP) block.  Serving needs only this coupled forward,
+against a dense per-row KV buffer (prefill) or the paged KV pool (decode).
+
+The param tree keeps the reference's key paths and stacked leading (L, ...)
+dims, so weights cross between the packages by path
+(``repro_torch.interop``); the reference's layer ``scan`` is a Python loop
+over layer slices.  Other families, the training path (reversible stack,
+loss) and fold_adapters are not ported yet.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Callable
+
+import torch
+from torch import nn
+
+from repro_torch import devices
+from repro_torch.configs.base import ModelConfig
+from repro_torch.core import adapters as ad
+from repro_torch.core.reversible import merge_streams, split_streams
+from repro_torch.models import common, moe as moe_lib, spec
+from repro_torch.models.common import (attention_decode, attn_specs,
+                                       init_kv_cache, lm_head_logits, mlp,
+                                       mlp_specs, norm_spec, rms_norm)
+from repro_torch.models.spec import ParamSpec
+
+
+@dataclasses.dataclass
+class StackDef:
+    name: str
+    n: int
+    unit_specs: Any
+    decode: Callable          # (lp, sh, ctx, i, x1, x2, cache) -> ((y1,y2), cache)
+    cache_init: Callable      # (B, buf, dtype, device) -> unit cache
+    decode_paged: Callable    # (lp, sh, ctx, i, x1, x2, pool, pt, wmask) -> ((y1,y2), pool)
+    pool_init: Callable       # (n_pages, page_size, dtype, device) -> unit pool
+    role: str = "main"
+
+
+def _layer(tree, i: int):
+    """Layer ``i`` of a stacked param/cache tree (views, no copies)."""
+    return spec.tree_map(lambda a: a[i], tree)
+
+
+def _stack_layers(tree, n: int):
+    """One unit's cache/pool tree repeated on a new leading layer axis."""
+    return spec.tree_map(lambda a: a.unsqueeze(0).repeat((n,) + (1,) * a.ndim),
+                         tree)
+
+
+# ===================================================================== blocks
+
+def _attn_in(cfg: ModelConfig, lp, x1, x2):
+    q_in = ad.up(lp["attn_ad"], rms_norm(x1, lp["norm1"], cfg.norm_eps))
+    kv_in = ad.up(lp["attn_ad"], rms_norm(x2, lp["norm2"], cfg.norm_eps))
+    return q_in, kv_in
+
+
+def _mlp_G(cfg: ModelConfig):
+    """Paper Eq. 2: FFN driven by the updated left stream."""
+    def G(p, sh, ctx, i, y1):
+        h = rms_norm(y1, p["norm_mlp"], cfg.norm_eps)
+        return ad.down(p["mlp_ad"], mlp(p["mlp"], ad.up(p["mlp_ad"], h)))
+    return G
+
+
+def _moe_G(cfg: ModelConfig):
+    def G(p, sh, ctx, i, y1):
+        h = ad.up(p["mlp_ad"], rms_norm(y1, p["norm_mlp"], cfg.norm_eps))
+        y, _aux = moe_lib.moe_apply(p["moe"], cfg, h)
+        return ad.down(p["mlp_ad"], y)
+    return G
+
+
+def _dense_sub_specs(cfg: ModelConfig, use_moe: bool = False) -> dict:
+    half = cfg.stream_dim
+    sp = {
+        "norm1": norm_spec(half),
+        "norm2": norm_spec(half),
+        "attn_ad": ad.adapter_specs(cfg.d_model),
+        "attn": attn_specs(cfg),
+        "norm_mlp": norm_spec(half),
+        "mlp_ad": ad.adapter_specs(cfg.d_model),
+    }
+    if use_moe:
+        sp["moe"] = moe_lib.moe_specs(cfg)
+    else:
+        sp["mlp"] = mlp_specs(cfg)
+    return sp
+
+
+def build_dense(cfg: ModelConfig, use_moe: bool = False):
+    if cfg.sliding_window is not None or cfg.local_global:
+        raise NotImplementedError(
+            f"{cfg.name}: sliding-window / local-global attention is not "
+            f"ported yet (ROADMAP.md queue 1)")
+    G = _moe_G(cfg) if use_moe else _mlp_G(cfg)
+
+    def decode(lp, sh, ctx, i, x1, x2, cu):
+        q_in, kv_in = _attn_in(cfg, lp, x1, x2)
+        att, nkv = attention_decode(lp["attn"], cfg, q_in, kv_in, cu["kv"],
+                                    ctx["t"])
+        y1 = x1 + ad.down(lp["attn_ad"], att)
+        y2 = x2 + G(lp, sh, ctx, i, y1)
+        return (y1, y2), {"kv": nkv}
+
+    def cache_init(B, buf, dtype, device):
+        return {"kv": init_kv_cache(cfg, B, buf, dtype, device)}
+
+    def decode_paged(lp, sh, ctx, i, x1, x2, pu, pt, wmask):
+        q_in, kv_in = _attn_in(cfg, lp, x1, x2)
+        att, npu = common.attention_decode_paged(
+            lp["attn"], cfg, q_in, kv_in, pu["kv"], pt, ctx["t"],
+            write_mask=wmask, kv_len=ctx["kv_len"])
+        y1 = x1 + ad.down(lp["attn_ad"], att)
+        y2 = x2 + G(lp, sh, ctx, i, y1)
+        return (y1, y2), {"kv": npu}
+
+    def pool_init(n_pages, page_size, dtype, device):
+        KV, hd = cfg.num_kv_heads, cfg.head_dim
+        return {"kv": {
+            "k": torch.zeros((n_pages, page_size, KV, hd), dtype=dtype,
+                             device=device),
+            "v": torch.zeros((n_pages, page_size, KV, hd), dtype=dtype,
+                             device=device),
+            "pos": torch.full((n_pages, page_size), -1, dtype=torch.int32,
+                              device=device)}}
+
+    return [StackDef("layers", cfg.num_layers, _dense_sub_specs(cfg, use_moe),
+                     decode, cache_init, decode_paged, pool_init)], {}
+
+
+def build_moe(cfg: ModelConfig):
+    return build_dense(cfg, use_moe=True)
+
+
+_BUILDERS = {"dense": build_dense, "moe": build_moe}
+
+
+# ===================================================================== model
+
+class Model(nn.Module):
+    """A config's param specs and its decode entry points.
+
+    Parameters live in a plain nested dict (the reference's pytree layout)
+    that ``init`` returns and every entry point takes first, so weights from
+    the JAX package cross unchanged.
+    """
+
+    def __init__(self, cfg: ModelConfig):
+        super().__init__()
+        assert cfg.moe_backend in moe_lib.MOE_BACKENDS, (
+            f"unknown moe_backend {cfg.moe_backend!r}; "
+            f"known: {moe_lib.MOE_BACKENDS}")
+        if cfg.family not in _BUILDERS:
+            raise NotImplementedError(
+                f"{cfg.name}: family {cfg.family!r} is not ported yet "
+                f"(ROADMAP.md queue 1, 'Other families')")
+        if cfg.num_layer_groups or cfg.fold_adapters or not cfg.reversible:
+            raise NotImplementedError(
+                f"{cfg.name}: lean layer groups, fold_adapters and the "
+                f"standard (non-reversible) path are not ported yet")
+        if cfg.expert_parallel > 0:
+            raise NotImplementedError(
+                "expert parallelism: not ported yet (ROADMAP.md queue 1)")
+        self.cfg = cfg
+        self.stacks, self.shared_specs = _BUILDERS[cfg.family](cfg)
+        d = cfg.d_model
+        self.top_specs = {
+            "embed": ParamSpec((cfg.vocab_size, d), ("vocab", "embed"),
+                               init="unit_normal"),
+            "final_norm": norm_spec(d),
+            "lm_head": ParamSpec((d, cfg.vocab_size), ("embed", "vocab")),
+        }
+
+    # ------------------------------------------------------------- specs
+
+    def param_specs(self):
+        out = dict(self.top_specs)
+        out["stacks"] = {s.name: spec.stack(s.n, s.unit_specs)
+                         for s in self.stacks}
+        return out
+
+    def init(self, generator: torch.Generator, device="cuda"):
+        """Random weights drawn from ``generator`` (which lives on
+        ``device``).  Defaults to the card; raises when there is none and the
+        CPU was not asked for."""
+        return spec.initialize(self.param_specs(), generator,
+                               devices.resolve(device), self.cfg.dtype)
+
+    def num_params(self) -> int:
+        return spec.count_params(self.param_specs())
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return devices.torch_dtype(self.cfg.dtype)
+
+    # ------------------------------------------------------------- decode
+
+    def init_cache(self, params, batch_size: int, buf_len: int):
+        """Dense per-row decode caches, stacked per layer:
+        {"t": (B,), "layers": {"kv": {"k"/"v": (L, B, C, KV, hd),
+        "pos": (L, B, C)}}}."""
+        dev = params["embed"].device
+        caches = {"t": torch.zeros((batch_size,), dtype=torch.int32,
+                                   device=dev)}
+        for s in self.stacks:
+            caches[s.name] = _stack_layers(
+                s.cache_init(batch_size, buf_len, self.dtype, dev), s.n)
+        return caches
+
+    def _walk(self, params, x1, x2, step):
+        shared = dict(params.get("shared", {}))
+        for s in self.stacks:
+            stacked = params["stacks"][s.name]
+            for i in range(s.n):
+                x1, x2 = step(s, _layer(stacked, i), shared, i, x1, x2)
+        return x1, x2
+
+    def decode_step_hidden(self, params, cache, token):
+        """Prefill/decode step up to the final norm.  token: (B, Sq); row b
+        starts at position cache["t"][b].  The cache is updated in place and
+        its ``t`` advanced by Sq.  Returns (h (B, Sq, d), cache)."""
+        cfg = self.cfg
+        t = cache["t"]
+        h = params["embed"][token]
+        ctx = {"t": t}
+        x1, x2 = split_streams(h)
+
+        def step(s, lp, shared, i, x1, x2):
+            (y1, y2), _ = s.decode(lp, shared, ctx, i, x1, x2,
+                                   _layer(cache[s.name], i))
+            return y1, y2
+
+        x1, x2 = self._walk(params, x1, x2, step)
+        cache["t"] = t + token.shape[1]
+        h = rms_norm(merge_streams(x1, x2), params["final_norm"], cfg.norm_eps)
+        return h, cache
+
+    # ------------------------------------------------------- paged decode
+
+    def paged_supported(self) -> bool:
+        main = [s for s in self.stacks if s.role == "main"]
+        return bool(main) and all(s.decode_paged is not None
+                                  and s.pool_init is not None for s in main)
+
+    def init_kv_pool(self, n_pages: int, page_size: int, device="cuda"):
+        """Paged KV storage: per main stack, pool leaves with a leading layer
+        axis — k/v (L, P, page, KV, hd) and stored positions (L, P, page)."""
+        if not self.paged_supported():
+            raise ValueError(f"config {self.cfg.name} has no paged KV layout")
+        dev = devices.resolve(device)
+        pools = {}
+        for s in self.stacks:
+            pools[s.name] = _stack_layers(
+                s.pool_init(n_pages, page_size, self.dtype, dev), s.n)
+        return pools
+
+    def decode_step_hidden_paged(self, params, pools, page_tables, t, token,
+                                 write_mask, *, kv_len: int):
+        """One decode step against the paged KV pool.  token: (B, 1); t: (B,)
+        per-slot positions; page_tables: (B, n_pages) int32; write_mask: (B,)
+        bool — rows not selected write nothing.  The pools are updated in
+        place.  Returns (h (B, 1, d), pools)."""
+        cfg = self.cfg
+        B, Sq = token.shape
+        assert Sq == 1, "paged decode is single-position"
+        h = params["embed"][token]
+        ctx = {"t": t, "kv_len": kv_len}
+        x1, x2 = split_streams(h)
+
+        def step(s, lp, shared, i, x1, x2):
+            (y1, y2), _ = s.decode_paged(lp, shared, ctx, i, x1, x2,
+                                         _layer(pools[s.name], i),
+                                         page_tables, write_mask)
+            return y1, y2
+
+        x1, x2 = self._walk(params, x1, x2, step)
+        h = rms_norm(merge_streams(x1, x2), params["final_norm"], cfg.norm_eps)
+        return h, pools
+
+    def lm_logits(self, params, h):
+        """LM-head logits from final-normed hidden states (any leading shape)."""
+        return lm_head_logits(h, params["lm_head"], self.cfg.final_softcap)

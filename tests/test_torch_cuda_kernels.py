@@ -1,0 +1,148 @@
+"""The port's CUDA kernels against their plain twins on the card, at edge
+shapes the serving smoke does not reach (ragged K and N, several query
+heads per KV head, small head dims, kv_len off the page grid), and the
+reduced engine on the card against the same engine on the CPU.
+
+Needs a CUDA GPU and nvcc; skipped elsewhere.  Run on a GPU machine with
+
+    PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda_kernels.py
+
+Tolerances as in chip_smoke.py: max|err| <= 1e-4 * max|ref| in f32,
+<= 2e-2 * max|ref| in bf16 (other summation order; bf16 outputs round).
+"""
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from repro_torch.kernels import paged_attention as pa  # noqa: E402
+from repro_torch.kernels.moe import dispatch as dsp  # noqa: E402
+from repro_torch.kernels.moe import ops  # noqa: E402
+from repro_torch.kernels.moe.ref import grouped_matmul_ref  # noqa: E402
+
+pytestmark = pytest.mark.cuda
+
+TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+
+
+@pytest.fixture(scope="module")
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU")
+    from repro_torch.kernels import build
+    build.library()              # builds with nvcc; raises when it cannot
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda", 0)
+
+
+def _assert_close(out, ref, dtype):
+    torch.cuda.synchronize()
+    assert torch.isfinite(out.float()).all()
+    err = (out.float() - ref.float()).abs().max().item()
+    scale = ref.float().abs().max().item()
+    assert err <= TOL[dtype] * max(scale, 1e-30), (err, scale)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("T,E,k,K,N", [(33, 5, 2, 40, 200), (4, 64, 4, 128, 64),
+                                       (70, 8, 2, 2048, 136)])
+def test_grouped_gemm_matches_twin(dev, dtype, T, E, k, K, N):
+    g = torch.Generator(device=dev).manual_seed(T + K)
+    idx = torch.argsort(torch.rand((T, E), generator=g, device=dev), 1)[:, :k]
+    plan = dsp.make_plan(idx, E, ops.KERNEL_BLOCK_M)
+    x = torch.randn((T, K), generator=g, device=dev).to(dtype)
+    lhs = dsp.permute(x, plan)
+    rhs = (torch.randn((E, K, N), generator=g, device=dev) * K ** -0.5).to(dtype)
+    before = ops.LAUNCHES
+    out = ops.grouped_matmul(lhs, rhs, plan.tile_expert, plan.block_m,
+                             plan.n_used_tiles)
+    assert ops.LAUNCHES == before + 1
+    ref = grouped_matmul_ref(lhs, rhs, plan.tile_expert, block_m=plan.block_m)
+    _assert_close(out, ref, dtype)
+    dead = int(plan.n_used_tiles) * plan.block_m
+    assert not out[dead:].any()          # the dead tail is exactly zero
+
+
+def test_grouped_gemm_rejects_what_it_cannot_take(dev):
+    lhs = torch.zeros((64, 40), device=dev)
+    rhs = torch.zeros((2, 40, 12), device=dev)
+    te = torch.zeros((1,), dtype=torch.int32, device=dev)
+    nu = torch.ones((1,), dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError):      # block_m is not the kernel's tile
+        ops.grouped_matmul(lhs[:32], rhs, te, 32, nu)
+    with pytest.raises(ValueError):      # N not a multiple of 16 bytes / elt
+        ops.grouped_matmul(lhs, torch.zeros((2, 40, 10), device=dev), te, 64, nu)
+    with pytest.raises(TypeError):
+        ops.grouped_matmul(lhs, rhs.to(torch.bfloat16), te, 64, nu)
+
+
+def _paged(dev, dtype, B, KV, G, hd, page, n_pages, seed):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    rng = np.random.default_rng(seed)
+    H, P = KV * G, B * n_pages + 2
+    q = torch.randn((B, H, hd), generator=g, device=dev).to(dtype)
+    k = torch.randn((P, page, KV, hd), generator=g, device=dev).to(dtype)
+    v = torch.randn((P, page, KV, hd), generator=g, device=dev).to(dtype)
+    t = rng.integers(1, n_pages * page, size=B).astype(np.int32)
+    phys = rng.permutation(P)
+    pt = np.full((B, n_pages), -1, np.int32)
+    pos = np.tile(np.arange(page, dtype=np.int32), (P, 1))   # stale everywhere
+    for b in range(B):
+        for j in range(min(-(-int(t[b] + 1) // page), n_pages)):
+            pp = int(phys[b * n_pages + j])
+            pt[b, j] = pp
+            pos[pp] = [j * page + o if j * page + o <= t[b] else -1
+                       for o in range(page)]
+    as_dev = lambda a: torch.from_numpy(a).to(dev)             # noqa: E731
+    return q, k, v, as_dev(pos), as_dev(pt), as_dev(t)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("KV,G,hd,page,n_pages,kv_cut", [
+    (2, 2, 32, 8, 4, 0), (16, 1, 128, 16, 8, 0), (1, 4, 64, 16, 5, 7),
+    (4, 2, 96, 4, 9, 3)])
+@pytest.mark.parametrize("window,softcap", [(None, None), (5, 20.0)])
+def test_paged_attention_matches_twin(dev, dtype, KV, G, hd, page, n_pages,
+                                      kv_cut, window, softcap):
+    q, k, v, pos, pt, t = _paged(dev, dtype, 3, KV, G, hd, page, n_pages,
+                                 seed=KV * 100 + hd)
+    kw = dict(kv_len=n_pages * page - kv_cut, window=window, softcap=softcap)
+    before = pa.LAUNCHES
+    out = pa.paged_attention(q, k, v, pos, pt, t, **kw)
+    assert pa.LAUNCHES == before + 1
+    _assert_close(out, pa.paged_attention_ref(q, k, v, pos, pt, t, **kw),
+                  dtype)
+
+
+def test_reduced_engine_on_the_card_matches_the_cpu(dev):
+    from repro_torch.configs.base import get_config
+    from repro_torch.models.model import Model
+    from repro_torch.serving.engine import Request, ServingEngine
+
+    cfg = get_config("qwen2-moe-a2.7b", reduced=True).replace(
+        num_layers=2, moe_backend="grouped")
+    model = Model(cfg)
+    params = model.init(torch.Generator().manual_seed(0), "cpu")
+    rng = np.random.default_rng(5)
+    pre = rng.integers(4, cfg.vocab_size, size=16).astype(np.int32)
+    prompts = [np.concatenate([pre, rng.integers(4, cfg.vocab_size, size=n)
+                               .astype(np.int32)]) for n in (5, 9, 3, 12)]
+
+    def serve(p):
+        eng = ServingEngine(model, p, slots=2, buf_len=48, paged=True,
+                            page_size=8)
+        for uid, pr in enumerate(prompts):
+            eng.submit(Request(uid=uid, prompt=pr, max_new_tokens=6, eos_id=-1))
+        return {u: r.generated for u, r in eng.run().items()}
+
+    cpu = serve(params)
+    launches = (ops.LAUNCHES, pa.LAUNCHES)
+    gpu = serve(_to(params, dev))
+    assert ops.LAUNCHES > launches[0] and pa.LAUNCHES > launches[1]
+    assert gpu == cpu
+
+
+def _to(tree, dev):
+    if isinstance(tree, dict):
+        return {k: _to(v, dev) for k, v in tree.items()}
+    return tree.to(dev)
