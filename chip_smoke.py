@@ -5,14 +5,21 @@
 
 Phases, each raising on failure (so the exit code is non-zero):
 
-  1. build    compile every CUDA kernel of the serving path from
-              src/repro_torch/csrc with nvcc for sm_90a; print the seconds.
-  2. kernels  hold each kernel against its plain PyTorch twin on the card at
-              the serving path's shapes, in f32 and bf16 (max|err| <=
-              1e-4 * max|ref| in f32, <= 2e-2 * max|ref| in bf16: the sums
-              run in another order and bf16 outputs round), and time kernel,
-              twin and — where one PyTorch call computes the same function —
-              that library call, with the L2 cache flushed before each launch.
+  1. build    compile every CUDA kernel of the port from src/repro_torch/csrc
+              with nvcc for sm_90a (one nvcc per source, all at once); print
+              the seconds.
+  2. kernels  hold each kernel against its plain PyTorch twin on the card, in
+              f32 and bf16 (max|err| <= 1e-4 * max|ref| in f32,
+              <= 2e-2 * max|ref| in bf16: the sums run in another order and
+              bf16 operands and outputs round), and time kernel, twin and —
+              where one PyTorch call computes the same function — that
+              library call, with the L2 cache flushed before each launch:
+              the grouped GEMM (forward read at the serving shapes, forward
+              and transposed reads at the training shape), paged attention at the
+              serving shape, and the three flash-attention kernels (a sweep of
+              causal / window / softcap / GQA group / head dim at a ragged
+              length, then timed at the training shape: 1 x 16 heads x 2048
+              x 128, bf16, causal).
   3. serve    full-width, full-depth qwen2-moe-a2.7b (24 layers, d=2048,
               64 padded experts top-4, 4 shared, vocab 151936, bf16) with
               random weights from a seeded torch.Generator on the card,
@@ -24,6 +31,21 @@ Phases, each raising on failure (so the exit code is non-zero):
               24 times per decode step.  Then every request's tokens are
               checked against a dense teacher-forced forward (plain PyTorch
               attention over a contiguous KV buffer).
+  4. train    the serve phase's weights and pool freed, full-width
+              qwen2-moe-a2.7b cut to 4 layers (all 24 with AdamW's f32
+              moments need ~184 GB), grouped MoE and flash attention, random
+              weights from seed 0, through ``train.driver.train``: AdamW,
+              batch 1 x 2048 tokens of the synthetic instruction data, 6
+              steps with the stage switch after 2, no checkpoint.  Counters
+              zeroed just before, read just after: every kernel of the path
+              must launch; every step's loss and grad norm must be finite.
+  5. reversible  on one batch of the training shape (1 x 2048) and one of
+              8 x 2048, ``Model.loss`` and its grads with save_memory=True
+              (activations rebuilt by inversion) and False (all kept): equal
+              losses, per-leaf grad cosine >= 0.99, both peaks of
+              max_memory_allocated, what is live at each peak (the
+              allocator's history, at 1 x 2048), and the per-layer
+              reconstruction error of the inversion.
 
 Prints a ``{"kernels": [...]}`` JSON line, the card's name and power limit
 (nvidia-smi), and as its last line
@@ -32,6 +54,8 @@ Exits non-zero, printing no result, without a GPU or outside a checkout.
 """
 from __future__ import annotations
 
+import contextlib
+import gc
 import json
 import os
 import subprocess
@@ -48,6 +72,14 @@ TOL = {"float32": 1e-4, "bfloat16": 2e-2}
 
 SLOTS, PAGE, PREFIX, TAIL_MIN, TAIL_MAX, GEN = 4, 16, 32, 4, 64, 16
 N_REQUESTS, BUF_LEN, SEED = 8, 128, 0
+
+# training phase: full width, depth cut to fit AdamW's state on one card
+TRAIN_LAYERS, TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS, STAGE1 = 4, 1, 2048, 6, 2
+MIN_GRAD_COSINE = 0.99
+# batches of the reversible check: the training shape, where one layer's
+# activations (~0.4 GB) are smaller than its parameter grads (~1.2 GB), and
+# one where they are larger
+REV_BATCHES = (TRAIN_BATCH, 8)
 
 
 def _dtype_name(dt) -> str:
@@ -139,7 +171,40 @@ def _library_grouped_mm(torch, lhs, rhs, plan):
     return (lambda: fn(lhs, rhs, offs=offs)), None
 
 
+def _time_grouped(torch, timer, tag, plan, lhs, rhs, run, rows_real):
+    """Time one bf16 read of the grouped GEMM — out = lhs @ rhs[expert] with
+    ``rhs`` (E, K, N) as the product reads it (a transposed view for d_lhs) —
+    with its twin and ``torch._grouped_mm`` on the same operands, and its
+    bound: the used lhs rows, the used experts' weights and the whole
+    (m_pad, N) output (the contract, the reference's, writes zeros to the
+    dead tiles) moved once; 2 * rows * K * N operations."""
+    from repro_torch.kernels.moe.ref import grouped_matmul_ref
+    n_used = int(plan.n_used_tiles)
+    experts_used = int((plan.group_sizes > 0).sum())
+    es = lhs.element_size()
+    K, N = rhs.shape[1], rhs.shape[2]
+    zero_fill = (plan.m_pad - n_used * plan.block_m) * N * es
+    nbytes = (n_used * plan.block_m * K * es + experts_used * K * N * es
+              + plan.m_pad * N * es + plan.tile_expert.numel() * 4)
+    bound, by = _bound_ms(nbytes, 2.0 * rows_real * K * N, "bfloat16")
+    ms = timer(run)
+    plain = timer(lambda: grouped_matmul_ref(
+        lhs, rhs, plan.tile_expert, block_m=plan.block_m), reps=5)
+    lib_fn, why = _library_grouped_mm(torch, lhs, rhs, plan)
+    lib = timer(lib_fn) if lib_fn is not None else None
+    print(f"[kernels] grouped_gemm {tag} bf16 K={K} N={N}: {ms:.4f} ms, twin "
+          f"{plain:.4f} ms, library "
+          f"{'%.4f ms' % lib if lib is not None else why}; bound {bound:.4f} "
+          f"ms by {by} ({nbytes / 1e6:.1f} MB, {zero_fill / 1e6:.1f} MB of it "
+          f"the dead tiles' zeros; {n_used} used tiles of "
+          f"{plan.m_pad // plan.block_m}, {experts_used} experts)", flush=True)
+    return {"ms": ms, "plain_ms": plain, "bound_ms": bound, "bound_by": by,
+            "library_ms": lib}
+
+
 def check_grouped_gemm(torch, timer, cfg, device):
+    """The forward read at the serving shapes (decode: one token per slot;
+    prefill: the largest suffix bucket); timed for the gate/up weights."""
     from repro_torch.kernels.moe import dispatch as dsp, ops
     from repro_torch.kernels.moe.ref import grouped_matmul_ref
     from repro_torch.models.moe import padded_experts
@@ -148,7 +213,6 @@ def check_grouped_gemm(torch, timer, cfg, device):
     d, f = cfg.d_model, cfg.d_ff_expert
     gen = torch.Generator(device=device).manual_seed(1)
     result = None
-    # decode: one token per slot; prefill: the largest suffix bucket
     for label, T in (("decode", SLOTS), ("prefill", SLOTS * BUF_LEN)):
         idx = _routing(torch, T, cfg.num_experts, k, gen, device)
         plan = dsp.make_plan(idx, E, ops.KERNEL_BLOCK_M)
@@ -159,46 +223,19 @@ def check_grouped_gemm(torch, timer, cfg, device):
                 lhs = dsp.permute(x, plan)
                 rhs = (torch.randn((E, K, N), generator=gen, device=device)
                        * K ** -0.5).to(dt)
-                out = ops.grouped_matmul(lhs, rhs, plan.tile_expert,
-                                         plan.block_m, plan.n_used_tiles)
+                run = lambda: ops.grouped_matmul_kernel(        # noqa: E731
+                    lhs, rhs, plan.tile_expert, plan.block_m, plan.n_used_tiles)
+                out = run()
                 ref = grouped_matmul_ref(lhs, rhs, plan.tile_expert,
                                          block_m=plan.block_m)
                 torch.cuda.synchronize(device)
                 err = _check(f"grouped_gemm {label} {dn} K={K} N={N}",
                              out, ref, dn)
-                if dn != "bfloat16" or K != d:
-                    del rhs, ref
-                    continue
-                # time the gate/up projection in the serving dtype
-                n_used = int(plan.n_used_tiles)
-                rows_real = T * k
-                experts_used = int((plan.group_sizes > 0).sum())
-                es = lhs.element_size()
-                # the whole (m_pad, N) output counts: the function's contract
-                # (the reference's) writes zeros to the dead tiles
-                zero_fill = (plan.m_pad - n_used * plan.block_m) * N * es
-                nbytes = (n_used * plan.block_m * K * es          # used lhs rows
-                          + experts_used * K * N * es             # their weights
-                          + plan.m_pad * N * es                   # output
-                          + plan.tile_expert.numel() * 4)
-                bound, by = _bound_ms(nbytes, 2.0 * rows_real * K * N, dn)
-                ms = timer(lambda: ops.grouped_matmul(
-                    lhs, rhs, plan.tile_expert, plan.block_m, plan.n_used_tiles))
-                plain = timer(lambda: grouped_matmul_ref(
-                    lhs, rhs, plan.tile_expert, block_m=plan.block_m), reps=5)
-                lib_fn, why = _library_grouped_mm(torch, lhs, rhs, plan)
-                lib = timer(lib_fn) if lib_fn is not None else None
-                print(f"[kernels] grouped_gemm {label} bf16 K={K} N={N}: "
-                      f"{ms:.4f} ms, twin {plain:.4f} ms, library "
-                      f"{'%.4f ms' % lib if lib is not None else why}; "
-                      f"bound {bound:.4f} ms by {by} ({nbytes / 1e6:.1f} MB, "
-                      f"{zero_fill / 1e6:.1f} MB of it the dead tiles' zeros; "
-                      f"{n_used} used tiles of {plan.m_pad // plan.block_m}, "
-                      f"{experts_used} experts)", flush=True)
-                if label == "decode":
-                    result = {"max_abs_err": err, "ms": ms, "plain_ms": plain,
-                              "bound_ms": bound, "bound_by": by,
-                              "library_ms": lib}
+                if dn == "bfloat16" and K == d:
+                    stats = _time_grouped(torch, timer, label, plan, lhs, rhs,
+                                          run, T * k)
+                    if label == "decode":
+                        result = {"max_abs_err": err, **stats}
                 del rhs, ref
     return result
 
@@ -271,14 +308,199 @@ def check_paged_attention(torch, timer, cfg, device):
     return result
 
 
+def check_grouped_gemm_train(torch, timer, cfg, device):
+    """Both reads of the grouped GEMM at the training shape (2048 tokens x
+    top-4): the forward out = x @ W, and the backward's d_lhs = ct @ W^T
+    with W read transposed in place; for the gate/up weights (E, d, f) and
+    the down weights (E, f, d), f32 and bf16; each read timed in bf16 for
+    the gate/up weights.  Returns (forward stats, transposed stats)."""
+    from repro_torch.kernels.moe import dispatch as dsp, ops
+    from repro_torch.kernels.moe.ref import grouped_matmul_ref
+    from repro_torch.models.moe import padded_experts
+
+    E, k = padded_experts(cfg.num_experts), cfg.top_k
+    d, f = cfg.d_model, cfg.d_ff_expert
+    T = TRAIN_BATCH * TRAIN_SEQ
+    gen = torch.Generator(device=device).manual_seed(4)
+    idx = _routing(torch, T, cfg.num_experts, k, gen, device)
+    plan = dsp.make_plan(idx, E, ops.KERNEL_BLOCK_M)
+    te, bm, nu = plan.tile_expert, plan.block_m, plan.n_used_tiles
+    result = {}
+    for dt in (torch.float32, torch.bfloat16):
+        dn = _dtype_name(dt)
+        for K, N in ((d, f), (f, d)):               # weights (E, K, N)
+            w = (torch.randn((E, K, N), generator=gen, device=device)
+                 * K ** -0.5).to(dt)
+            x = dsp.permute(torch.randn((T, K), generator=gen,
+                                        device=device).to(dt), plan)
+            ct = dsp.permute(torch.randn((T, N), generator=gen,
+                                         device=device).to(dt), plan)
+            reads = {
+                # name: (lhs, rhs as the product reads it, kernel launch)
+                "forward": (x, w, lambda: ops.grouped_matmul_kernel(
+                    x, w, te, bm, nu)),
+                "transposed": (ct, w.transpose(1, 2),
+                               lambda: ops.grouped_matmul_kernel(
+                                   ct, w, te, bm, nu, trans_rhs=True)),
+            }
+            for name, (lhs, rhs, run) in reads.items():
+                out = run()
+                ref = grouped_matmul_ref(lhs, rhs, te, block_m=bm)
+                torch.cuda.synchronize(device)
+                err = _check(f"grouped_gemm {name} train {dn} W=({K},{N})",
+                             out, ref, dn)
+                if dn == "bfloat16" and K == d:
+                    result[name] = {"max_abs_err": err, **_time_grouped(
+                        torch, timer, f"{name} train", plan, lhs, rhs, run,
+                        T * k)}
+                del out, ref
+            del w, x, ct
+    return result["forward"], result["transposed"]
+
+
+FLASH_SWEEP_S = 300      # ragged: not a multiple of the kernels' tiles
+
+
+def _flash_case(torch, fa, gen, device, dt, B, KV, G, S, hd, kw):
+    """One (fwd, dq, dkv) evaluation of kernels and twins on random inputs."""
+    r = lambda *s: torch.randn(s, generator=gen, device=device).to(dt)  # noqa: E731
+    q, k, v, do = r(B, KV * G, S, hd), r(B, KV, S, hd), r(B, KV, S, hd), \
+        r(B, KV * G, S, hd)
+    o, lse = fa.flash_fwd(q, k, v, **kw)
+    ro, rlse = fa.flash_attention_fwd_ref(q, k, v, **kw)
+    delta = torch.sum(do.float() * ro.float(), dim=-1)
+    got = {"flash_fwd": (o,), "flash_bwd_dq": (fa.flash_bwd_dq(
+        q, k, v, rlse, delta, do, **kw),),
+        "flash_bwd_dkv": fa.flash_bwd_dkv(q, k, v, rlse, delta, do, **kw)}
+    want = {"flash_fwd": (ro,), "flash_bwd_dq": (fa.flash_bwd_dq_ref(
+        q, k, v, rlse, delta, do, **kw),),
+        "flash_bwd_dkv": fa.flash_bwd_dkv_ref(q, k, v, rlse, delta, do, **kw)}
+    torch.cuda.synchronize(device)
+    lse_err = float((lse - rlse).abs().max())
+    return (q, k, v, do, rlse, delta), got, want, lse_err, rlse
+
+
+def check_flash(torch, timer, cfg, device):
+    """The three flash kernels against their twins over causal x window x
+    softcap x GQA group x head dim, f32 and bf16, at a ragged length; then
+    each timed at the training shape with its twin and its library call."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as fa
+
+    gen = torch.Generator(device=device).manual_seed(5)
+    worst = {}
+    n = 0
+    for dt in (torch.float32, torch.bfloat16):
+        dn = _dtype_name(dt)
+        for causal in (True, False):
+            for window in (None, 64):
+                for cap in (None, 30.0):
+                    for G in (1, 2):
+                        for hd in (64, 128):
+                            kw = dict(causal=causal, window=window,
+                                      softcap=cap)
+                            _, got, want, lse_err, rlse = _flash_case(
+                                torch, fa, gen, device, dt, 1, 2, G,
+                                FLASH_SWEEP_S, hd, kw)
+                            if not lse_err <= 1e-4 * float(rlse.abs().max()):
+                                raise RuntimeError(f"flash_fwd lse {kw} G={G} "
+                                                   f"hd={hd} {dn}: {lse_err}")
+                            for name in got:
+                                for a, b in zip(got[name], want[name]):
+                                    e = float((a.float() - b.float()).abs().max())
+                                    sc = float(b.float().abs().max())
+                                    if not e <= TOL[dn] * max(sc, 1e-30):
+                                        raise RuntimeError(
+                                            f"{name} {kw} G={G} hd={hd} {dn}: "
+                                            f"max|err| {e} > {TOL[dn]} * {sc}")
+                                    key = (name, dn)
+                                    worst[key] = max(worst.get(key, 0.0),
+                                                     e / max(sc, 1e-30))
+                            n += 1
+    for (name, dn), rel in sorted(worst.items()):
+        print(f"[kernels] {name} {dn}: {n // 2} cases at S={FLASH_SWEEP_S} "
+              f"(causal x window{{none,64}} x softcap{{none,30}} x G{{1,2}} x "
+              f"hd{{64,128}}), worst max|err|/max|ref| {rel:.3e} "
+              f"(tol {TOL[dn]:.0e})", flush=True)
+
+    # the training shape
+    B, H, S, hd = TRAIN_BATCH, cfg.num_heads, TRAIN_SEQ, cfg.head_dim
+    KV = cfg.num_kv_heads
+    kw = dict(causal=True, window=None, softcap=cfg.logit_softcap)
+    (q, k, v, do, rlse, delta), got, want, _, _ = _flash_case(
+        torch, fa, gen, device, torch.bfloat16, B, KV, H // KV, S, hd, kw)
+    es = q.element_size()
+    act = B * H * S * hd * es                         # one (B,H,S,hd) tensor
+    kv_b = B * KV * S * hd * es
+    row = B * H * S * 4                               # lse / delta
+    pairs = S * S / 2                                 # causal: half the tiles
+    shapes = {
+        # name: (bytes moved, flops, kernel, twin)
+        "flash_fwd": (act + 2 * kv_b + act + row, 4.0 * B * H * pairs * hd,
+                      lambda: fa.flash_fwd(q, k, v, **kw),
+                      lambda: fa.flash_attention_fwd_ref(q, k, v, **kw)),
+        "flash_bwd_dq": (2 * act + 2 * kv_b + 2 * row + act,
+                         6.0 * B * H * pairs * hd,
+                         lambda: fa.flash_bwd_dq(q, k, v, rlse, delta, do, **kw),
+                         lambda: fa.flash_bwd_dq_ref(q, k, v, rlse, delta, do,
+                                                     **kw)),
+        "flash_bwd_dkv": (2 * act + 2 * kv_b + 2 * row + 2 * kv_b,
+                          8.0 * B * H * pairs * hd,
+                          lambda: fa.flash_bwd_dkv(q, k, v, rlse, delta, do,
+                                                   **kw),
+                          lambda: fa.flash_bwd_dkv_ref(q, k, v, rlse, delta,
+                                                       do, **kw)),
+    }
+    # library yardsticks: PyTorch's fused attention forward, and its
+    # backward, which computes dq, dk and dv in one call
+    rep = H // KV
+    kl, vl = k.repeat_interleave(rep, 1), v.repeat_interleave(rep, 1)
+    lib_fwd = timer(lambda: F.scaled_dot_product_attention(q, kl, vl,
+                                                           is_causal=True))
+    qr, kr, vr = (t.detach().requires_grad_() for t in (q, kl, vl))
+    out = F.scaled_dot_product_attention(qr, kr, vr, is_causal=True)
+    lib_bwd = timer(lambda: torch.autograd.grad(out, (qr, kr, vr), do,
+                                                retain_graph=True))
+    del out, qr, kr, vr
+    results = {}
+    for name, (nbytes, flops, kern, twin) in shapes.items():
+        err = max(float((a.float() - b.float()).abs().max())
+                  for a, b in zip(got[name], want[name]))
+        scale = max(float(b.float().abs().max()) for b in want[name])
+        if not err <= TOL["bfloat16"] * scale:
+            raise RuntimeError(f"{name} at the training shape: {err}")
+        bound, by = _bound_ms(nbytes, flops, "bfloat16")
+        ms = timer(kern)
+        plain = timer(twin, reps=5)
+        lib = lib_fwd if name == "flash_fwd" else lib_bwd
+        print(f"[kernels] {name} train bf16 (B={B}, H={H}, S={S}, hd={hd}, "
+              f"causal): {ms:.4f} ms, twin {plain:.4f} ms, library "
+              f"{lib:.4f} ms ({'scaled_dot_product_attention' if name == 'flash_fwd' else 'its backward: dq, dk and dv in one call'}); "
+              f"bound {bound:.4f} ms by {by} ({nbytes / 1e6:.1f} MB, "
+              f"{flops / 1e9:.2f} GFLOP); max|err| {err:.3e} at max|ref| "
+              f"{scale:.3e}", flush=True)
+        results[name] = {"max_abs_err": err, "ms": ms, "plain_ms": plain,
+                         "bound_ms": bound, "bound_by": by,
+                         "library_ms": lib}
+    return results
+
+
 def phase_kernels(cfg, device):
     import torch
     timer = Timer(torch, device)
-    gg = check_grouped_gemm(torch, timer, cfg, device)
-    pa = check_paged_attention(torch, timer, cfg, device)
+    fwd_train, transposed = check_grouped_gemm_train(torch, timer, cfg,
+                                                     device)
+    out = {"grouped_gemm": check_grouped_gemm(torch, timer, cfg, device),
+           "grouped_gemm_transposed": transposed,
+           "paged_attention": check_paged_attention(torch, timer, cfg, device)}
+    # the row's headline is the decode shape (PR 11's); the train path
+    # launches the same read at 2048 tokens
+    out["grouped_gemm"]["train_shape"] = fwd_train
+    out.update(check_flash(torch, timer, cfg, device))
     del timer
+    gc.collect()
     torch.cuda.empty_cache()
-    return {"grouped_gemm": gg, "paged_attention": pa}
+    return out
 
 
 # ------------------------------------------------------------- phase 3
@@ -328,8 +550,6 @@ def phase_serve(cfg, device):
     import numpy as np
     import torch
     from repro_torch import obs
-    from repro_torch.kernels import paged_attention as pa
-    from repro_torch.kernels.moe import ops
     from repro_torch.models.model import Model
     from repro_torch.serving.engine import Request, ServingEngine
 
@@ -350,8 +570,7 @@ def phase_serve(cfg, device):
                         telemetry=tel, page_size=PAGE)
     prompts = _prompts(np, cfg.vocab_size)
 
-    ops.LAUNCHES = 0
-    pa.LAUNCHES = 0
+    _reset_counts()
     t0 = time.perf_counter()
     for uid, p in enumerate(prompts):
         eng.submit(Request(uid=uid, prompt=p, max_new_tokens=GEN, eos_id=-1,
@@ -359,7 +578,7 @@ def phase_serve(cfg, device):
     done = eng.run()
     torch.cuda.synchronize(device)
     wall = time.perf_counter() - t0
-    launches = {"grouped_gemm": ops.LAUNCHES, "paged_attention": pa.LAUNCHES}
+    launches = _read_counts()
 
     steps = tel.counter("serve.decode_steps").value
     n_tok = sum(len(r.generated) for r in done.values())
@@ -381,9 +600,10 @@ def phase_serve(cfg, device):
         raise RuntimeError("not every request finished with its tokens")
     if tel.counter("serve.prefix_hits").value <= 0:
         raise RuntimeError("the radix prefix cache never hit")
-    for name, n in launches.items():
-        if n <= 0:
-            raise RuntimeError(f"{name} kernel never launched on the main path")
+    for name in ("grouped_gemm", "paged_attention"):
+        if launches[name] <= 0:
+            raise RuntimeError(f"{name} kernel never launched on the serve "
+                               f"path")
     if launches["paged_attention"] != cfg.num_layers * steps:
         raise RuntimeError(f"paged attention launched "
                            f"{launches['paged_attention']} times, expected "
@@ -395,13 +615,198 @@ def phase_serve(cfg, device):
     return launches
 
 
+# ------------------------------------------------------------- phase 4
+
+def _train_cfg(cfg):
+    return cfg.replace(num_layers=TRAIN_LAYERS, moe_backend="grouped",
+                       use_flash_kernel=True)
+
+
+def _reset_counts():
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import paged_attention as pa
+    from repro_torch.kernels.moe import ops
+    ops.LAUNCHES = ops.TRANS_LAUNCHES = pa.LAUNCHES = 0
+    for name in fa.LAUNCHES:
+        fa.LAUNCHES[name] = 0
+
+
+def _read_counts():
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import paged_attention as pa
+    from repro_torch.kernels.moe import ops
+    return {"grouped_gemm": ops.LAUNCHES,
+            "grouped_gemm_transposed": ops.TRANS_LAUNCHES,
+            "paged_attention": pa.LAUNCHES, **fa.LAUNCHES}
+
+
+def phase_train(cfg, device):
+    import math
+    import torch
+    from repro_torch import obs
+    from repro_torch.data.pipeline import DataConfig
+    from repro_torch.models.model import Model
+    from repro_torch.optim.adamw import AdamW, cosine_schedule
+    from repro_torch.train import driver
+
+    tcfg = _train_cfg(cfg)
+    model = Model(tcfg)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(device)
+    print(f"[train] {tcfg.name} cut to {tcfg.num_layers} layers (full width): "
+          f"{model.num_params():,} params, dtype {tcfg.dtype}, batch "
+          f"{TRAIN_BATCH} x {TRAIN_SEQ}, {TRAIN_STEPS} steps, stage 2 from "
+          f"step {STAGE1 + 1}; memory in use before "
+          f"{torch.cuda.memory_allocated(device) / 2**30:.2f} GiB", flush=True)
+    tel = obs.Telemetry()
+    dc = DataConfig(vocab_size=tcfg.vocab_size, seq_len=TRAIN_SEQ,
+                    global_batch=TRAIN_BATCH)
+    rc = driver.RunConfig(total_steps=TRAIN_STEPS, stage1_steps=STAGE1,
+                          ckpt_dir=None, log_every=TRAIN_STEPS)
+    opt = AdamW(lr=1e-4, weight_decay=0.01,
+                lr_schedule=cosine_schedule(STAGE1, TRAIN_STEPS))
+    _reset_counts()
+    t0 = time.perf_counter()
+    params, opt_state, losses = driver.train(
+        model, opt, dc, rc, device=device, seed=SEED, telemetry=tel,
+        log_fn=lambda m: print(f"[train] {m}", flush=True))
+    torch.cuda.synchronize(device)
+    wall = time.perf_counter() - t0
+    launches = _read_counts()
+    peak = torch.cuda.max_memory_allocated(device)
+    steps = [e for e in tel.events if e["kind"] == "train_step"]
+    for e in steps:
+        print(f"[train] step {e['step']} stage {e['stage']}: loss "
+              f"{e['loss']:.6f}, grad norm {e['grad_norm']:.6f}, "
+              f"{e['step_s']:.3f} s", flush=True)
+    steady = [e["step_s"] for e in steps[1:]]
+    step_s = sum(steady) / len(steady)
+    print(f"[train] {len(steps)} steps in {wall:.2f} s (weights drawn on the "
+          f"card included); steps 2-{len(steps)}: {step_s:.3f} s/step, "
+          f"{TRAIN_BATCH * TRAIN_SEQ / step_s:.1f} tokens/s; "
+          f"max_memory_allocated {peak / 2**30:.2f} GiB", flush=True)
+    print(f"[train] launches {launches} ({len(steps)} steps)", flush=True)
+    if len(steps) != TRAIN_STEPS:
+        raise RuntimeError(f"{len(steps)} train steps ran, not {TRAIN_STEPS}")
+    if not all(math.isfinite(e["loss"]) and math.isfinite(e["grad_norm"])
+               for e in steps):
+        raise RuntimeError("a non-finite loss or grad norm")
+    if tel.counter("train.nonfinite_grad_steps").value:
+        raise RuntimeError("the optimizer skipped a non-finite step")
+    for name, n in launches.items():
+        if name != "paged_attention" and n <= 0:
+            raise RuntimeError(f"{name} kernel never launched on the train "
+                               f"path")
+    del opt_state
+    return model, params, dc, launches
+
+
+# ------------------------------------------------------------- phase 5
+
+def _cosine(torch, a, b):
+    """cos(a, b) over flat f32 chunks; 1.0 when both are exactly zero."""
+    dot = na = nb = 0.0
+    fa_, fb_ = a.reshape(-1), b.reshape(-1)
+    for lo in range(0, fa_.numel(), 1 << 26):
+        x, y = fa_[lo:lo + (1 << 26)].float(), fb_[lo:lo + (1 << 26)].float()
+        dot += float((x * y).sum())
+        na += float((x * x).sum())
+        nb += float((y * y).sum())
+    if na == 0.0 and nb == 0.0:
+        return 1.0
+    return dot / max((na * nb) ** 0.5, 1e-300)
+
+
+def _reversible_check(torch, model, params, batch, device, label,
+                      breakdown):
+    from repro_torch.core.reversible import inversion_errors
+    from repro_torch.launch.profiling import live_at_peak, memory_history
+    from repro_torch.models.spec import tree_leaves
+    from repro_torch.train.trainer import value_and_grad
+
+    res = {}
+    for sm in (True, False):
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(device)
+        base = torch.cuda.memory_allocated(device)
+        with (memory_history() if breakdown else contextlib.nullcontext(
+                {})) as hist:
+            loss, grads = value_and_grad(
+                lambda p, b: model.loss(p, b, save_memory=sm), params, batch)
+            torch.cuda.synchronize(device)
+        peak = torch.cuda.max_memory_allocated(device)
+        if breakdown:
+            above, rows = live_at_peak(hist["snapshot"], device.index or 0)
+            print(f"[reversible] {label} save_memory={sm}: at the peak, "
+                  f"{above / 2**30:.2f} GiB allocated during the call are "
+                  f"live; largest groups (count x block, site): " + "; ".join(
+                      f"{b / 2**30:.3f} GiB = {c} x {sz / 2**20:.1f} MiB "
+                      f"{site}" for b, c, sz, site in rows), flush=True)
+        # park the grads on the host so the next mode's peak is its own
+        res[sm] = (float(loss), {k: g.to("cpu") for k, g in tree_leaves(grads)},
+                   peak, base)
+        del grads
+        print(f"[reversible] {label} save_memory={sm}: loss {float(loss)!r}; "
+              f"max_memory_allocated {peak / 2**30:.2f} GiB ("
+              f"{(peak - base) / 2**30:.2f} GiB above the "
+              f"{base / 2**30:.2f} GiB of weights and batch)", flush=True)
+    (l_rev, g_rev, p_rev, base), (l_all, g_all, p_all, _) = res[True], res[False]
+    cos = {k: _cosine(torch, g_rev[k].to(device), g_all[k].to(device))
+           for k in g_rev}
+    worst = min(cos, key=cos.get)
+    print(f"[reversible] {label} {len(cos)} grad leaves; smallest cosine "
+          f"{cos[worst]:.6f} at {'/'.join(worst)}; per leaf: " + ", ".join(
+              f"{'/'.join(k)} {v:.6f}" for k, v in sorted(cos.items())),
+          flush=True)
+    print(f"[reversible] {label} peak with stored activations "
+          f"{p_all / 2**30:.2f} GiB, reversible {p_rev / 2**30:.2f} GiB: "
+          f"{(p_all - p_rev) / 2**30:.2f} GiB saved at "
+          f"{model.cfg.num_layers} layers", flush=True)
+    s = model.stacks[0]
+    x1, x2, ctx = model._embed_streams(params, batch["tokens"])
+    errs = inversion_errors(s.fwd, s.inv, params["stacks"][s.name], {}, ctx,
+                            x1, x2, s.n)
+    for i, (mx, mean, rel) in enumerate(errs):
+        print(f"[reversible] {label} layer {i}: reconstruction max|err| "
+              f"{mx:.4e}, mean|err| {mean:.4e}, rel {rel:.4e}", flush=True)
+    if l_rev != l_all:
+        raise RuntimeError(f"{label}: losses differ: {l_rev!r} vs {l_all!r}")
+    if not cos[worst] >= MIN_GRAD_COSINE:
+        raise RuntimeError(f"{label}: grad cosine {cos[worst]} < "
+                           f"{MIN_GRAD_COSINE}")
+
+
+def phase_reversible(model, params, dc, device):
+    import dataclasses
+    import torch
+    from repro_torch.data.pipeline import packed_batches
+    from repro_torch.train.trainer import to_device_batch
+
+    for b in REV_BATCHES:
+        dcb = dataclasses.replace(dc, global_batch=b)
+        batch = to_device_batch(next(packed_batches(dcb)), device)
+        _reversible_check(torch, model, params, batch, device,
+                          f"batch {b} x {dc.seq_len}",
+                          breakdown=b == REV_BATCHES[0])
+
+
 # ---------------------------------------------------------------- main
 
 SOURCES = {
     "grouped_gemm": ("src/repro_torch/csrc/grouped_gemm.cu",
                      "src/repro/kernels/moe/grouped_gemm.py:36"),
+    "grouped_gemm_transposed": ("src/repro_torch/csrc/grouped_gemm.cu",
+                                "src/repro/kernels/moe/grouped_gemm.py:36"),
     "paged_attention": ("src/repro_torch/csrc/paged_attention.cu",
                         "src/repro/kernels/paged_attention.py:100"),
+    "flash_fwd": ("src/repro_torch/csrc/flash_attention.cu",
+                  "src/repro/kernels/flash_attention.py:64"),
+    "flash_bwd_dq": ("src/repro_torch/csrc/flash_attention.cu",
+                     "src/repro/kernels/flash_attention.py:195"),
+    "flash_bwd_dkv": ("src/repro_torch/csrc/flash_attention.cu",
+                      "src/repro/kernels/flash_attention.py:225"),
 }
 
 
@@ -428,13 +833,17 @@ def main() -> int:
 
     phase_build()
     stats = phase_kernels(cfg, device)
-    launches = phase_serve(cfg, device)
+    by_path = {"serve": phase_serve(cfg, device)}
+    model, params, dc, by_path["train"] = phase_train(cfg, device)
+    phase_reversible(model, params, dc, device)
+    del model, params
 
     rows = []
     for name, (src, replaces) in SOURCES.items():
+        paths = {p: c[name] for p, c in by_path.items() if c[name]}
         rows.append({"name": name, "route": "cuda", "source": src,
-                     "replaces": replaces, "launches": launches[name],
-                     **stats[name]})
+                     "replaces": replaces, "launches": sum(paths.values()),
+                     "launches_by_path": paths, **stats[name]})
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60)

@@ -7,5 +7,10 @@ names and layout so each piece has an obvious counterpart.  It imports
 Slice 1 covers paged serving of qwen2-moe-a2.7b: configs, param specs, the
 decode paths of the dense/MoE blocks, the sort-based MoE dispatch with a
 hand-written CUDA grouped GEMM, the paged-attention CUDA kernel, sampling,
-the paged continuous-batching engine and its launcher.
+the paged continuous-batching engine and its launcher.  Slice 2 covers its
+two-stage reversible full-parameter training: the train-path attention with
+hand-written CUDA flash-attention kernels (forward, dq, dk/dv), the grouped
+GEMM's backward, the reversible stack, the chunked loss, the stage masks,
+AdamW, the train step, the data pipeline, checkpoints, the driver and its
+launcher.
 """

@@ -9,6 +9,15 @@
 // (m_pad, K), rhs (E, K, N) row-major, tile_expert (m_pad/64,) int32, out
 // (m_pad, N) in lhs's dtype; f32 accumulation.  bf16 and f32 are taken.
 //
+// Transposed read (trans_rhs = 1).  The backward's d_lhs is the same product
+// against every expert's transposed weights (the reference's
+// _run(ct, rhs.transpose(0, 2, 1), ...), moe/ops.py:78).  With trans_rhs the
+// kernel takes rhs as the forward's (E, N, K) weights and reads them
+// transposed in place: each K chunk of a weight row is one 16-byte load into
+// an (n, k) shared tile, which the tensor cores read column-major.  No
+// transposed copy (369 MB per projection per layer at qwen2-moe's widths)
+// is ever made.
+//
 // Bound on an H100 SXM (3.35 TB/s, 989 TFLOP/s bf16).  At qwen2-moe-a2.7b's
 // decode shapes (4 slots, top-4: 16 routed rows) each projection reads at
 // most 16 distinct 2048x1408 bf16 expert matrices (5.77 MB each, ~92 MB)
@@ -45,6 +54,8 @@
 #include <mma.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 namespace {
 
 constexpr int BM = 64;
@@ -58,14 +69,19 @@ template <typename T>
 struct Tile {
   static constexpr int EPC = 16 / sizeof(T);  // elements per 16-byte chunk
   static constexpr int LDA = BK + EPC;        // padded rows keep 16 B alignment
-  static constexpr int LDB = BN + EPC;
+  static constexpr int LDB = BN + EPC;        // B tile as (k, n)
+  static constexpr int LDBT = BK + EPC;       // B tile as (n, k): transposed read
   static constexpr int A_CHUNKS = BM * BK / EPC / THREADS;
   static constexpr int B_CHUNKS = BK * BN / EPC / THREADS;
   static_assert(BM * LDA * sizeof(T) + BK * LDB * sizeof(T) <= SMEM_BYTES,
                 "operand tiles exceed the staging buffer");
+  static_assert(BM * LDA * sizeof(T) + BN * LDBT * sizeof(T) <= SMEM_BYTES,
+                "operand tiles exceed the staging buffer");
 };
 
-template <typename T>
+// B(k, n) of expert e: rhs_e[k * N + n], or rhs_e[n * K + k] when TB (the
+// weights stored (N, K), read transposed).
+template <typename T, bool TB>
 __device__ __forceinline__ void load_chunks(const T* __restrict__ lhs,
                                             const T* __restrict__ rhs_e,
                                             int m0, int n0, int k0, int K, int N,
@@ -84,16 +100,25 @@ __device__ __forceinline__ void load_chunks(const T* __restrict__ lhs,
 #pragma unroll
   for (int i = 0; i < L::B_CHUNKS; ++i) {
     const int c = threadIdx.x + i * THREADS;
-    const int row = c / (BN / L::EPC);
-    const int col = (c % (BN / L::EPC)) * L::EPC;
-    const int gk = k0 + row, gn = n0 + col;
-    rb[i] = (gk < K && gn < N)
-                ? *reinterpret_cast<const uint4*>(rhs_e + (size_t)gk * N + gn)
-                : zero;
+    if (TB) {
+      const int row = c / (BK / L::EPC);            // n within the tile
+      const int col = (c % (BK / L::EPC)) * L::EPC;  // k within the chunk
+      const int gn = n0 + row, gk = k0 + col;
+      rb[i] = (gk < K && gn < N)
+                  ? *reinterpret_cast<const uint4*>(rhs_e + (size_t)gn * K + gk)
+                  : zero;
+    } else {
+      const int row = c / (BN / L::EPC);
+      const int col = (c % (BN / L::EPC)) * L::EPC;
+      const int gk = k0 + row, gn = n0 + col;
+      rb[i] = (gk < K && gn < N)
+                  ? *reinterpret_cast<const uint4*>(rhs_e + (size_t)gk * N + gn)
+                  : zero;
+    }
   }
 }
 
-template <typename T>
+template <typename T, bool TB>
 __device__ __forceinline__ void store_chunks(T* As, T* Bs, const uint4* ra,
                                              const uint4* rb) {
   using L = Tile<T>;
@@ -107,9 +132,15 @@ __device__ __forceinline__ void store_chunks(T* As, T* Bs, const uint4* ra,
 #pragma unroll
   for (int i = 0; i < L::B_CHUNKS; ++i) {
     const int c = threadIdx.x + i * THREADS;
-    const int row = c / (BN / L::EPC);
-    const int col = (c % (BN / L::EPC)) * L::EPC;
-    *reinterpret_cast<uint4*>(Bs + row * L::LDB + col) = rb[i];
+    if (TB) {
+      const int row = c / (BK / L::EPC);
+      const int col = (c % (BK / L::EPC)) * L::EPC;
+      *reinterpret_cast<uint4*>(Bs + row * L::LDBT + col) = rb[i];
+    } else {
+      const int row = c / (BN / L::EPC);
+      const int col = (c % (BN / L::EPC)) * L::EPC;
+      *reinterpret_cast<uint4*>(Bs + row * L::LDB + col) = rb[i];
+    }
   }
 }
 
@@ -127,6 +158,7 @@ __device__ __forceinline__ void zero_tile(T* __restrict__ out, int m0, int n0, i
 
 // ---------------------------------------------------------------- bf16 path
 
+template <bool TB>
 __global__ void __launch_bounds__(THREADS)
 gmm_bf16_kernel(const __nv_bfloat16* __restrict__ lhs,
                 const __nv_bfloat16* __restrict__ rhs,
@@ -135,6 +167,7 @@ gmm_bf16_kernel(const __nv_bfloat16* __restrict__ lhs,
                 __nv_bfloat16* __restrict__ out, int K, int N, int E) {
   using namespace nvcuda;
   using L = Tile<__nv_bfloat16>;
+  using LB = typename std::conditional<TB, wmma::col_major, wmma::row_major>::type;
   __shared__ __align__(128) unsigned char smem[SMEM_BYTES];
   __nv_bfloat16* As = reinterpret_cast<__nv_bfloat16*>(smem);
   __nv_bfloat16* Bs = As + BM * L::LDA;
@@ -158,21 +191,24 @@ gmm_bf16_kernel(const __nv_bfloat16* __restrict__ lhs,
     for (int j = 0; j < 2; ++j) wmma::fill_fragment(acc[i][j], 0.0f);
 
   uint4 ra[L::A_CHUNKS], rb[L::B_CHUNKS];
-  load_chunks(lhs, rhs_e, m0, n0, 0, K, N, ra, rb);
+  load_chunks<__nv_bfloat16, TB>(lhs, rhs_e, m0, n0, 0, K, N, ra, rb);
   for (int k0 = 0; k0 < K; k0 += BK) {
-    store_chunks(As, Bs, ra, rb);
+    store_chunks<__nv_bfloat16, TB>(As, Bs, ra, rb);
     __syncthreads();
-    if (k0 + BK < K) load_chunks(lhs, rhs_e, m0, n0, k0 + BK, K, N, ra, rb);
+    if (k0 + BK < K) load_chunks<__nv_bfloat16, TB>(lhs, rhs_e, m0, n0, k0 + BK, K, N, ra, rb);
 #pragma unroll
     for (int kk = 0; kk < BK; kk += 16) {
       wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> a[2];
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::row_major> b[2];
+      wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, LB> b[2];
 #pragma unroll
       for (int i = 0; i < 2; ++i)
         wmma::load_matrix_sync(a[i], As + (wm + i * 16) * L::LDA + kk, L::LDA);
 #pragma unroll
       for (int j = 0; j < 2; ++j)
-        wmma::load_matrix_sync(b[j], Bs + kk * L::LDB + wn + j * 16, L::LDB);
+        wmma::load_matrix_sync(b[j],
+                               TB ? Bs + (wn + j * 16) * L::LDBT + kk
+                                  : Bs + kk * L::LDB + wn + j * 16,
+                               TB ? L::LDBT : L::LDB);
 #pragma unroll
       for (int i = 0; i < 2; ++i)
 #pragma unroll
@@ -203,6 +239,7 @@ gmm_bf16_kernel(const __nv_bfloat16* __restrict__ lhs,
 
 // ----------------------------------------------------------------- f32 path
 
+template <bool TB>
 __global__ void __launch_bounds__(THREADS)
 gmm_f32_kernel(const float* __restrict__ lhs, const float* __restrict__ rhs,
                const int* __restrict__ tile_expert,
@@ -231,18 +268,19 @@ gmm_f32_kernel(const float* __restrict__ lhs, const float* __restrict__ rhs,
     for (int j = 0; j < 8; ++j) acc[i][j] = 0.0f;
 
   uint4 ra[L::A_CHUNKS], rb[L::B_CHUNKS];
-  load_chunks(lhs, rhs_e, m0, n0, 0, K, N, ra, rb);
+  load_chunks<float, TB>(lhs, rhs_e, m0, n0, 0, K, N, ra, rb);
   for (int k0 = 0; k0 < K; k0 += BK) {
-    store_chunks(As, Bs, ra, rb);
+    store_chunks<float, TB>(As, Bs, ra, rb);
     __syncthreads();
-    if (k0 + BK < K) load_chunks(lhs, rhs_e, m0, n0, k0 + BK, K, N, ra, rb);
+    if (k0 + BK < K) load_chunks<float, TB>(lhs, rhs_e, m0, n0, k0 + BK, K, N, ra, rb);
 #pragma unroll 8
     for (int kk = 0; kk < BK; ++kk) {
       float a[4], b[8];
 #pragma unroll
       for (int i = 0; i < 4; ++i) a[i] = As[(ty + 16 * i) * L::LDA + kk];
 #pragma unroll
-      for (int j = 0; j < 8; ++j) b[j] = Bs[kk * L::LDB + tx + 16 * j];
+      for (int j = 0; j < 8; ++j)
+        b[j] = TB ? Bs[(tx + 16 * j) * L::LDBT + kk] : Bs[kk * L::LDB + tx + 16 * j];
 #pragma unroll
       for (int i = 0; i < 4; ++i)
 #pragma unroll
@@ -259,29 +297,39 @@ gmm_f32_kernel(const float* __restrict__ lhs, const float* __restrict__ rhs,
     }
 }
 
+template <bool TB>
+void launch(const void* lhs, const void* rhs, const void* tile_expert,
+            const void* n_used_tiles, void* out, int K, int N, int E, int dtype,
+            dim3 grid, cudaStream_t s) {
+  if (dtype == 1) {
+    gmm_bf16_kernel<TB><<<grid, THREADS, 0, s>>>(
+        static_cast<const __nv_bfloat16*>(lhs), static_cast<const __nv_bfloat16*>(rhs),
+        static_cast<const int*>(tile_expert), static_cast<const int*>(n_used_tiles),
+        static_cast<__nv_bfloat16*>(out), K, N, E);
+  } else {
+    gmm_f32_kernel<TB><<<grid, THREADS, 0, s>>>(
+        static_cast<const float*>(lhs), static_cast<const float*>(rhs),
+        static_cast<const int*>(tile_expert), static_cast<const int*>(n_used_tiles),
+        static_cast<float*>(out), K, N, E);
+  }
+}
+
 }  // namespace
 
+// rhs is (E, K, N), or (E, N, K) read transposed when trans_rhs is 1.
 extern "C" int repro_grouped_gemm(const void* lhs, const void* rhs,
                                   const void* tile_expert, const void* n_used_tiles,
                                   void* out, int m_pad, int K, int N, int E,
-                                  int block_m, int dtype, void* stream) {
-  if (block_m != BM || m_pad % BM != 0 || K <= 0 || N <= 0 || E <= 0)
+                                  int block_m, int trans_rhs, int dtype, void* stream) {
+  if (block_m != BM || m_pad % BM != 0 || K <= 0 || N <= 0 || E <= 0 ||
+      (dtype != 0 && dtype != 1))
     return (int)cudaErrorInvalidValue;
   if (m_pad == 0) return 0;
   const dim3 grid(m_pad / BM, (N + BN - 1) / BN);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 1) {
-    gmm_bf16_kernel<<<grid, THREADS, 0, s>>>(
-        static_cast<const __nv_bfloat16*>(lhs), static_cast<const __nv_bfloat16*>(rhs),
-        static_cast<const int*>(tile_expert), static_cast<const int*>(n_used_tiles),
-        static_cast<__nv_bfloat16*>(out), K, N, E);
-  } else if (dtype == 0) {
-    gmm_f32_kernel<<<grid, THREADS, 0, s>>>(
-        static_cast<const float*>(lhs), static_cast<const float*>(rhs),
-        static_cast<const int*>(tile_expert), static_cast<const int*>(n_used_tiles),
-        static_cast<float*>(out), K, N, E);
-  } else {
-    return (int)cudaErrorInvalidValue;
-  }
+  if (trans_rhs)
+    launch<true>(lhs, rhs, tile_expert, n_used_tiles, out, K, N, E, dtype, grid, s);
+  else
+    launch<false>(lhs, rhs, tile_expert, n_used_tiles, out, K, N, E, dtype, grid, s);
   return (int)cudaGetLastError();
 }

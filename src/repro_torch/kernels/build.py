@@ -33,15 +33,26 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
 
+#: the flash-attention entry points' common tail: B, H, KV, Sq, Skv, hd,
+#: causal, has_window, window, softcap, scale, dtype, stream
+_FLASH_TAIL = [_I] * 9 + [_F, _F, _I, _P]
+
 #: C signature of every entry point: name -> argtypes (restype is c_int)
 SIGNATURES = {
     # lhs, rhs, tile_expert, n_used_tiles, out, m_pad, K, N, E, block_m,
-    # dtype, stream
-    "repro_grouped_gemm": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    # trans_rhs, dtype, stream
+    "repro_grouped_gemm": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                           _P],
     # q, k_pool, v_pool, pos_pool, page_table, t, out, B, H, KV, hd, P,
     # page, n_pages, kv_len, window, softcap, dtype, stream
     "repro_paged_attention": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                               _I, _I, _I, _I, _I, _F, _I, _P],
+    # q, k, v, o, lse, then _FLASH_TAIL
+    "repro_flash_fwd": [_P] * 5 + _FLASH_TAIL,
+    # q, k, v, do, lse, delta, dq, then _FLASH_TAIL
+    "repro_flash_bwd_dq": [_P] * 7 + _FLASH_TAIL,
+    # q, k, v, do, lse, delta, dk, dv, then _FLASH_TAIL
+    "repro_flash_bwd_dkv": [_P] * 8 + _FLASH_TAIL,
 }
 
 #: dtype codes shared with the C side

@@ -94,14 +94,17 @@ def combine(ys, gates, plan: DispatchPlan, num_tokens: int):
     """ys: (m_pad, d), gates: (T, k) -> y: (T, d).
 
     Gathers each slot's expert output back out of the padded buffer and
-    adds it into its token row under the gate weight, accumulating the k
-    contributions in f32 and rounding once.  On CUDA ``index_add_`` adds in
-    a nondeterministic order: results agree to f32 rounding (~1e-7
-    relative), not bit for bit.
+    adds a token's k contributions under their gate weights in f32,
+    rounding once.  The reference scatter-adds them in sorted (expert
+    ascending) order; here each token's k rows are gathered in that order
+    and summed, which needs no atomics, so the result is the same on every
+    run (``index_add_`` on CUDA adds in a nondeterministic order).
     """
-    g_sorted = gates.reshape(-1)[plan.order]
-    contrib = ys[plan.dest].float() * g_sorted[:, None].float()
-    out = torch.zeros((num_tokens, ys.shape[1]), dtype=torch.float32,
-                      device=ys.device)
-    out.index_add_(0, plan.order // plan.top_k, contrib)
-    return out.to(ys.dtype)
+    M = plan.order.numel()
+    inv = torch.empty_like(plan.order)
+    inv[plan.order] = torch.arange(M, device=plan.order.device)
+    rows = plan.dest[inv].reshape(num_tokens, plan.top_k)  # row of slot (t, j)
+    rows, by_row = torch.sort(rows, dim=1)
+    g = torch.gather(gates, 1, by_row)
+    contrib = ys[rows].float() * g[..., None].float()      # (T, k, d)
+    return contrib.sum(dim=1).to(ys.dtype)

@@ -19,48 +19,9 @@ not ported yet (ROADMAP.md queue 1).
 from __future__ import annotations
 
 import argparse
-import contextlib
 import time
 
-
-@contextlib.contextmanager
-def _maybe_profile(top: int, dev):
-    if not top:
-        yield None
-        return
-    from torch.profiler import ProfilerActivity, profile
-    acts = [ProfilerActivity.CPU]
-    if dev.type == "cuda":
-        acts.append(ProfilerActivity.CUDA)
-    with profile(activities=acts) as prof:
-        yield prof
-
-
-def _print_profile(prof, top: int, wall_s: float):
-    """Top device kernels and top host ops by self time, and the device busy
-    share: summed kernel time over the traced wall time.  Only device-side
-    events are summed — an aten op's device time is its kernels' time, which
-    the kernels' own events already carry."""
-    from torch.autograd import DeviceType
-    events = prof.key_averages()
-    kernels = [e for e in events if e.device_type == DeviceType.CUDA]
-    host = [e for e in events if e.device_type == DeviceType.CPU]
-
-    def dev_us(e):
-        return getattr(e, "self_device_time_total",
-                       getattr(e, "self_cuda_time_total", 0.0))
-
-    busy_us = sum(dev_us(e) for e in kernels)
-    print(f"[profile] wall {wall_s:.3f} s; kernel time {busy_us / 1e6:.3f} s "
-          f"over {sum(e.count for e in kernels)} launches of {len(kernels)} "
-          f"kernels (device busy share {busy_us / 1e6 / wall_s:.3f})")
-    for title, evs, key in (("device kernels", kernels, dev_us),
-                            ("host ops", host,
-                             lambda e: e.self_cpu_time_total)):
-        print(f"[profile] top {top} {title} by self time:")
-        for e in sorted(evs, key=key, reverse=True)[:top]:
-            print(f"[profile]   {key(e) / 1e3:10.3f} ms  {e.count:7d} calls  "
-                  f"{e.key[:90]}")
+from repro_torch.launch.profiling import maybe_profile, print_profile
 
 
 def main(argv=None):
@@ -157,14 +118,14 @@ def main(argv=None):
                            eos_id=-1, temperature=args.temperature,
                            top_k=args.top_k, top_p=args.top_p, seed=uid))
 
-    with _maybe_profile(args.profile, dev) as prof:
+    with maybe_profile(args.profile, dev) as prof:
         t0 = time.perf_counter()
         done = eng.run()
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
         dt = time.perf_counter() - t0
     if prof is not None:
-        _print_profile(prof, args.profile, dt)
+        print_profile(prof, args.profile, dt)
     n_tok = sum(len(r.generated) for r in done.values())
     print(f"[serve] {args.arch} on {dev}: {len(done)} requests, {n_tok} "
           f"tokens, {n_tok / dt:.1f} tok/s (slots={args.slots}, "

@@ -1,6 +1,7 @@
-"""Shared model components on the decode path (port of
-``repro.models.common``): norms, RoPE, GQA decode attention over a dense KV
-buffer and over the paged pool, LM head, SwiGLU MLP.
+"""Shared model components (port of ``repro.models.common``): norms, RoPE,
+GQA attention on the training path (flash kernels or the q-chunked plain
+branch), GQA decode attention over a dense KV buffer and over the paged
+pool, LM head, SwiGLU MLP.
 
 Every function keeps the reference's dtype at each step: ``rms_norm`` works
 in f32, attention scores are f32 and the probabilities are cast to V's dtype
@@ -25,7 +26,7 @@ NEG_INF = -1e30
 
 def _not_ported(what: str):
     return NotImplementedError(
-        f"{what}: not ported yet (ROADMAP.md queue 1, left out of slice 1)")
+        f"{what}: not ported yet (ROADMAP.md queue 1)")
 
 
 # ---------------------------------------------------------------- norms
@@ -101,6 +102,71 @@ def _qkv(p, cfg: ModelConfig, xq, xkv, pos_q):
     k = _proj(xkv, p["wk"], p.get("bk")).reshape(B, Sq, KV, hd)
     v = _proj(xkv, p["wv"], p.get("bv")).reshape(B, Sq, KV, hd)
     return rope(q, pos_q, cfg.rope_theta), rope(k, pos_q, cfg.rope_theta), v
+
+
+# ------------------------------------------------------ train-path attention
+
+def attention(p, cfg: ModelConfig, xq, xkv, *, positions_q, positions_k,
+              causal: bool = True, window: Optional[int] = None):
+    """GQA self/cross-branch attention over whole sequences (the
+    reference's cache-free path).  xq: (B, Sq, d), xkv: (B, Skv, d).
+
+    With ``cfg.use_flash_kernel`` and Sq, Skv multiples of the flash blocks
+    this is the flash branch (``kernels.flash_attention``: the CUDA kernels
+    on the card, their twins on the CPU), which like the reference's assumes
+    positions 0..S-1.  Otherwise the plain branch: f32 scores, softmax cast
+    to V's dtype, chunked over ``cfg.attn_q_chunk`` query rows so the full
+    Sq x Skv score matrix never materialises.
+    """
+    B, Sq, _ = xq.shape
+    Skv = xkv.shape[1]
+    H, KV, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    q = _proj(xq, p["wq"], p.get("bq")).reshape(B, Sq, H, hd)
+    k = _proj(xkv, p["wk"], p.get("bk")).reshape(B, Skv, KV, hd)
+    v = _proj(xkv, p["wv"], p.get("bv")).reshape(B, Skv, KV, hd)
+    q = rope(q, positions_q, cfg.rope_theta)
+    k = rope(k, positions_k, cfg.rope_theta)
+
+    if cfg.use_flash_kernel:
+        bq = min(cfg.flash_block_q, Sq)
+        bk = min(cfg.flash_block_k, Skv)
+        if Sq % bq == 0 and Skv % bk == 0:
+            from repro_torch.kernels.flash_attention import (
+                flash_attention_trainable)
+            out = flash_attention_trainable(
+                q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                causal, window, cfg.logit_softcap, cfg.flash_block_q,
+                cfg.flash_block_k)
+            out = out.transpose(1, 2).reshape(B, Sq, H * hd)
+            return torch.matmul(out, p["wo"])
+
+    G = H // KV
+    kf = k.float()
+
+    def attend(q_blk, pos_q_blk):
+        n = q_blk.shape[1]
+        qg = q_blk.reshape(B, n, KV, G, hd)
+        scores = torch.einsum("bqkgh,bskh->bkgqs", qg.float(), kf) * hd ** -0.5
+        scores = softcap(scores, cfg.logit_softcap)
+        pq = pos_q_blk[:, None, None, :, None]
+        pk = positions_k[:, None, None, None, :]
+        mask = torch.ones_like(scores, dtype=torch.bool)
+        if causal:
+            mask = mask & (pq >= pk)
+        if window is not None:
+            mask = mask & ((pq - pk) < window)
+        scores = torch.where(mask, scores, torch.full_like(scores, NEG_INF))
+        probs = torch.softmax(scores, dim=-1).to(v.dtype)
+        return torch.einsum("bkgqs,bskh->bqkgh", probs, v).reshape(
+            B, n, H * hd)
+
+    qc = cfg.attn_q_chunk
+    if qc and Sq > qc and Sq % qc == 0:
+        out = torch.cat([attend(q[:, c:c + qc], positions_q[:, c:c + qc])
+                         for c in range(0, Sq, qc)], dim=1)
+    else:
+        out = attend(q, positions_q)
+    return torch.matmul(out, p["wo"])
 
 
 # ------------------------------------------------------- decode-path attention

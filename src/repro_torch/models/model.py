@@ -1,17 +1,19 @@
-"""The dense/MoE reversible model on its serving (decode) paths — port of
-``repro.models.model``.
+"""The dense/MoE reversible model — port of ``repro.models.model``: the
+training path (reversible stack, chunked cross-entropy loss) and the
+serving paths (prefill against a dense per-row KV buffer, decode against
+the paged KV pool).
 
 Each layer is a reversible unit over the two feature streams (RevFFN):
 y1 = x1 + F(x1, x2) with F the cross-branch attention (Q from stream 1,
 K/V from stream 2, through the P_up/P_down adapters), then y2 = x2 + G(y1)
-with G the MoE (or MLP) block.  Serving needs only this coupled forward,
-against a dense per-row KV buffer (prefill) or the paged KV pool (decode).
+with G the MoE (or MLP) block; the inverse runs ``inverse_fp_iters``
+fixed-point iterations for F.
 
 The param tree keeps the reference's key paths and stacked leading (L, ...)
 dims, so weights cross between the packages by path
 (``repro_torch.interop``); the reference's layer ``scan`` is a Python loop
-over layer slices.  Other families, the training path (reversible stack,
-loss) and fold_adapters are not ported yet.
+over layer slices.  Other families, per-layer activation policies, lean
+layer groups and fold_adapters are not ported yet.
 """
 from __future__ import annotations
 
@@ -20,15 +22,18 @@ from typing import Any, Callable
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch import devices
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import adapters as ad
-from repro_torch.core.reversible import merge_streams, split_streams
+from repro_torch.core.reversible import (make_coupled, merge_streams,
+                                         reversible_stack, split_streams)
 from repro_torch.models import common, moe as moe_lib, spec
-from repro_torch.models.common import (attention_decode, attn_specs,
-                                       init_kv_cache, lm_head_logits, mlp,
-                                       mlp_specs, norm_spec, rms_norm)
+from repro_torch.models.common import (attention, attention_decode,
+                                       attn_specs, init_kv_cache,
+                                       lm_head_logits, mlp, mlp_specs,
+                                       norm_spec, rms_norm)
 from repro_torch.models.spec import ParamSpec
 
 
@@ -37,6 +42,9 @@ class StackDef:
     name: str
     n: int
     unit_specs: Any
+    fwd: Callable             # (lp, sh, ctx, i, x1, x2) -> (y1, y2)
+    inv: Callable             # its inverse
+    half_inv: Callable        # exact x2 = y2 - G(y1) (semi-reversible)
     decode: Callable          # (lp, sh, ctx, i, x1, x2, cache) -> ((y1,y2), cache)
     cache_init: Callable      # (B, buf, dtype, device) -> unit cache
     decode_paged: Callable    # (lp, sh, ctx, i, x1, x2, pool, pt, wmask) -> ((y1,y2), pool)
@@ -63,16 +71,28 @@ def _attn_in(cfg: ModelConfig, lp, x1, x2):
     return q_in, kv_in
 
 
+def _attn_F(cfg: ModelConfig):
+    """Paper Eq. 1: cross-branch attention residual (Q from x1, K/V from x2),
+    causal."""
+    def F(p, sh, ctx, i, x1, x2):
+        q_in, kv_in = _attn_in(cfg, p, x1, x2)
+        att = attention(p["attn"], cfg, q_in, kv_in,
+                        positions_q=ctx["positions"],
+                        positions_k=ctx["positions"], causal=True)
+        return ad.down(p["attn_ad"], att)
+    return F
+
+
 def _mlp_G(cfg: ModelConfig):
     """Paper Eq. 2: FFN driven by the updated left stream."""
-    def G(p, sh, ctx, i, y1):
+    def G(p, sh, ctx, i, y1, _y2=None):
         h = rms_norm(y1, p["norm_mlp"], cfg.norm_eps)
         return ad.down(p["mlp_ad"], mlp(p["mlp"], ad.up(p["mlp_ad"], h)))
     return G
 
 
 def _moe_G(cfg: ModelConfig):
-    def G(p, sh, ctx, i, y1):
+    def G(p, sh, ctx, i, y1, _y2=None):
         h = ad.up(p["mlp_ad"], rms_norm(y1, p["norm_mlp"], cfg.norm_eps))
         y, _aux = moe_lib.moe_apply(p["moe"], cfg, h)
         return ad.down(p["mlp_ad"], y)
@@ -102,6 +122,11 @@ def build_dense(cfg: ModelConfig, use_moe: bool = False):
             f"{cfg.name}: sliding-window / local-global attention is not "
             f"ported yet (ROADMAP.md queue 1)")
     G = _moe_G(cfg) if use_moe else _mlp_G(cfg)
+    fwd, inv = make_coupled(_attn_F(cfg), G, mode=cfg.coupling,
+                            fp_iters=cfg.inverse_fp_iters)
+
+    def half_inv(lp, sh, ctx, i, x1, y1, y2):
+        return y2 - G(lp, sh, ctx, i, y1)
 
     def decode(lp, sh, ctx, i, x1, x2, cu):
         q_in, kv_in = _attn_in(cfg, lp, x1, x2)
@@ -134,7 +159,8 @@ def build_dense(cfg: ModelConfig, use_moe: bool = False):
                               device=device)}}
 
     return [StackDef("layers", cfg.num_layers, _dense_sub_specs(cfg, use_moe),
-                     decode, cache_init, decode_paged, pool_init)], {}
+                     fwd, inv, half_inv, decode, cache_init, decode_paged,
+                     pool_init)], {}
 
 
 def build_moe(cfg: ModelConfig):
@@ -147,7 +173,8 @@ _BUILDERS = {"dense": build_dense, "moe": build_moe}
 # ===================================================================== model
 
 class Model(nn.Module):
-    """A config's param specs and its decode entry points.
+    """A config's param specs, its training loss and its decode entry
+    points.
 
     Parameters live in a plain nested dict (the reference's pytree layout)
     that ``init`` returns and every entry point takes first, so weights from
@@ -201,6 +228,90 @@ class Model(nn.Module):
     @property
     def dtype(self) -> torch.dtype:
         return devices.torch_dtype(self.cfg.dtype)
+
+    # ------------------------------------------------------------ forward
+
+    def _embed_streams(self, params, tokens):
+        B, S = tokens.shape
+        h = params["embed"][tokens]
+        positions = torch.arange(S, dtype=torch.int32,
+                                 device=tokens.device)[None].expand(B, S)
+        x1, x2 = split_streams(h)
+        return x1, x2, {"positions": positions}
+
+    def hidden_streams(self, params, tokens, save_memory=True):
+        """The main stacks' output streams (y1, y2) for tokens (B, S).
+
+        ``save_memory``: True (paper O(1) mode), "half" or False (plain
+        loop, every activation kept); a per-layer policy list raises "not
+        ported yet"."""
+        x1, x2, ctx = self._embed_streams(params, tokens)
+        shared = dict(params.get("shared", {}))
+        for s in self.stacks:
+            apply = reversible_stack(s.fwd, s.inv, s.n,
+                                     save_memory=save_memory,
+                                     half_inv=s.half_inv)
+            x1, x2 = apply(params["stacks"][s.name], shared, ctx, x1, x2)
+        return x1, x2
+
+    def hidden(self, params, tokens, extras=None, save_memory=True):
+        """Final-normed hidden states (B, S, d) — everything before the LM
+        head."""
+        if extras:
+            raise NotImplementedError(
+                "encoder / image extras: not ported yet (ROADMAP.md queue 1)")
+        y1, y2 = self.hidden_streams(params, tokens, save_memory)
+        return rms_norm(merge_streams(y1, y2), params["final_norm"],
+                        self.cfg.norm_eps)
+
+    def forward(self, params, tokens, extras=None, save_memory=True):
+        return self.lm_logits(params,
+                              self.hidden(params, tokens, extras, save_memory))
+
+    def _nll(self, lm_head, h, tgt):
+        """Per-position nll from final hidden states (chunk-sized)."""
+        lg = lm_head_logits(h, lm_head, self.cfg.final_softcap).float()
+        lse = torch.logsumexp(lg, dim=-1)
+        gold = torch.gather(lg, -1, tgt[..., None].long())[..., 0]
+        return lse - gold
+
+    def loss(self, params, batch, save_memory=True):
+        """Next-token cross-entropy.  batch: tokens (B, S) [+ loss_mask].
+        Sequence-chunked so the full (B, S, vocab) logits never
+        materialise."""
+        h = self.hidden(params, batch["tokens"], None, save_memory)
+        return self._token_loss(params, h, batch)
+
+    def loss_from_streams(self, params, y1, y2, batch):
+        """Tail of ``loss`` from the main stacks' output streams: final norm
+        + LM head + token CE."""
+        h = rms_norm(merge_streams(y1, y2), params["final_norm"],
+                     self.cfg.norm_eps)
+        return self._token_loss(params, h, batch)
+
+    def _token_loss(self, params, h, batch):
+        """Masked, sequence-chunked CE from final-normed hidden states.  Each
+        chunk's body is checkpointed: otherwise autograd keeps every chunk's
+        f32 logits, the whole (B, S, vocab) the chunking exists to avoid."""
+        tokens = batch["tokens"]
+        B, S, _ = h.shape
+        tgt = torch.cat([tokens[:, 1:], tokens[:, :1]], dim=1)  # last: dummy
+        valid = torch.ones((B, S), dtype=torch.float32, device=h.device)
+        valid[:, -1] = 0.0
+        mask = batch.get("loss_mask")
+        if mask is not None:
+            valid = valid * torch.cat([mask[:, 1:], mask[:, :1]],
+                                      dim=1).float()
+        ck = self.cfg.loss_chunk
+        w = params["lm_head"]
+        if ck and S > ck and S % ck == 0:
+            nll = torch.cat([
+                checkpoint(self._nll, w, h[:, c:c + ck], tgt[:, c:c + ck],
+                           use_reentrant=False)
+                for c in range(0, S, ck)], dim=1)
+        else:
+            nll = self._nll(w, h, tgt)
+        return torch.sum(nll * valid) / torch.clamp(torch.sum(valid), min=1.0)
 
     # ------------------------------------------------------------- decode
 

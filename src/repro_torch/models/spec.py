@@ -59,6 +59,18 @@ def tree_leaves(tree, prefix=()):
     return [(prefix, tree)]
 
 
+def tree_unflatten(paths, leaves):
+    """Nested dict from (key path, leaf) pairs: the inverse of
+    ``tree_leaves``."""
+    out = {}
+    for path, x in zip(paths, leaves):
+        node = out
+        for k in path[:-1]:
+            node = node.setdefault(k, {})
+        node[path[-1]] = x
+    return out
+
+
 def stack(n: int, tree):
     """Prepend a stacked-layers dimension to every spec in the tree."""
     return tree_map(lambda s: ParamSpec((n,) + s.shape, ("layers",) + s.axes,
@@ -106,13 +118,10 @@ def _init_leaf(spec: ParamSpec, generator: torch.Generator, device,
 def initialize(tree, generator: torch.Generator, device, dtype: str):
     """Materialise a spec tree.  Leaves are drawn in sorted key-path order
     from ``generator`` (which must live on ``device``)."""
-    out = {}
-    for path, s in tree_leaves(tree):
-        node = out
-        for k in path[:-1]:
-            node = node.setdefault(k, {})
-        node[path[-1]] = _init_leaf(s, generator, device, dtype)
-    return out
+    pairs = tree_leaves(tree)
+    return tree_unflatten([p for p, _ in pairs],
+                          [_init_leaf(s, generator, device, dtype)
+                           for _, s in pairs])
 
 
 def count_params(tree) -> int:

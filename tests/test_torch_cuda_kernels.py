@@ -1,7 +1,8 @@
 """The port's CUDA kernels against their plain twins on the card, at edge
-shapes the serving smoke does not reach (ragged K and N, several query
-heads per KV head, small head dims, kv_len off the page grid), and the
-reduced engine on the card against the same engine on the CPU.
+shapes the smoke does not reach (ragged K and N, several query heads per KV
+head, small head dims, kv_len off the page grid, ragged sequence lengths,
+fully masked rows), the reduced engine on the card against the same engine
+on the CPU, and the reduced training step on the card against the CPU.
 
 Needs a CUDA GPU and nvcc; skipped elsewhere.  Run on a GPU machine with
 
@@ -15,6 +16,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels import paged_attention as pa  # noqa: E402
 from repro_torch.kernels.moe import dispatch as dsp  # noqa: E402
 from repro_torch.kernels.moe import ops  # noqa: E402
@@ -146,3 +148,140 @@ def _to(tree, dev):
     if isinstance(tree, dict):
         return {k: _to(v, dev) for k, v in tree.items()}
     return tree.to(dev)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("T,E,k,K,N", [(33, 5, 2, 40, 200), (70, 8, 2, 2048, 136),
+                                       (300, 64, 4, 128, 64)])
+def test_grouped_gemm_transposed_read_matches_twin(dev, dtype, T, E, k, K, N):
+    """d_lhs = ct @ W^T read in place from the forward's (E, K_out, N_in)
+    weights, against the twin on an explicit transpose."""
+    g = torch.Generator(device=dev).manual_seed(T + N)
+    idx = torch.argsort(torch.rand((T, E), generator=g, device=dev), 1)[:, :k]
+    plan = dsp.make_plan(idx, E, ops.KERNEL_BLOCK_M)
+    x = torch.randn((T, K), generator=g, device=dev).to(dtype)
+    lhs = dsp.permute(x, plan)
+    w = (torch.randn((E, N, K), generator=g, device=dev) * K ** -0.5).to(dtype)
+    before = ops.TRANS_LAUNCHES
+    out = ops.grouped_matmul_kernel(lhs, w, plan.tile_expert, plan.block_m,
+                                    plan.n_used_tiles, trans_rhs=True)
+    assert ops.TRANS_LAUNCHES == before + 1
+    ref = grouped_matmul_ref(lhs, w.transpose(1, 2), plan.tile_expert,
+                             block_m=plan.block_m)
+    _assert_close(out, ref, dtype)
+
+
+def test_grouped_matmul_backward_on_the_card_matches_the_cpu(dev):
+    g = torch.Generator().manual_seed(3)
+    T, E, k, K, N = 90, 8, 2, 96, 48
+    idx = torch.argsort(torch.rand((T, E), generator=g), 1)[:, :k]
+    x = torch.randn((T, K), generator=g)
+    w = torch.randn((E, K, N), generator=g) * K ** -0.5
+    ct = torch.randn((T, N), generator=g)
+
+    def grads(device):
+        plan = dsp.make_plan(idx.to(device), E, ops.KERNEL_BLOCK_M)
+        xs = dsp.permute(x.to(device), plan).requires_grad_()
+        wd = w.to(device).requires_grad_()
+        out = ops.grouped_matmul(xs, wd, plan.tile_expert, plan.block_m,
+                                 plan.n_used_tiles)
+        rows = plan.dest[torch.argsort(plan.order)]
+        out[rows].backward(ct.to(device).repeat_interleave(k, 0))
+        return xs.grad.cpu(), wd.grad.cpu()
+
+    for got, want in zip(grads(dev), grads("cpu")):
+        assert (got - want).abs().max().item() <= 1e-4 * want.abs().max().item()
+
+
+def _flash_inputs(dev, dtype, B, KV, G, Sq, Skv, hd, seed):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    r = lambda *s: torch.randn(s, generator=g, device=dev).to(dtype)  # noqa: E731
+    return r(B, KV * G, Sq, hd), r(B, KV, Skv, hd), r(B, KV, Skv, hd), \
+        r(B, KV * G, Sq, hd)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,KV,G,Sq,Skv,hd", [
+    (2, 2, 2, 100, 100, 32), (1, 1, 4, 64, 192, 64), (1, 3, 1, 130, 77, 128),
+    (1, 2, 2, 256, 256, 128)])
+@pytest.mark.parametrize("causal,window,softcap", [
+    (True, None, None), (False, None, None), (True, 24, None),
+    (False, 40, 20.0), (True, None, 30.0), (True, 0, None)])
+def test_flash_kernels_match_twins(dev, dtype, B, KV, G, Sq, Skv, hd, causal,
+                                   window, softcap):
+    """Forward (o, lse), dq and dk/dv against the twins; window 0 makes
+    every row fully masked (o = mean(v), lse = -1e30, zero grads)."""
+    q, k, v, do = _flash_inputs(dev, dtype, B, KV, G, Sq, Skv, hd,
+                                seed=Sq * 7 + hd)
+    kw = dict(causal=causal, window=window, softcap=softcap)
+    before = dict(fa.LAUNCHES)
+    o, lse = fa.flash_fwd(q, k, v, **kw)
+    ro, rlse = fa.flash_attention_fwd_ref(q, k, v, **kw)
+    _assert_close(o, ro, dtype)
+    dead = rlse <= -1e29
+    assert torch.equal(dead, lse <= -1e29)
+    if not dead.all():
+        _assert_close(lse[~dead], rlse[~dead], torch.float32)
+    delta = torch.sum(do.float() * ro.float(), dim=-1)
+    dq = fa.flash_bwd_dq(q, k, v, rlse, delta, do, **kw)
+    dk, dv = fa.flash_bwd_dkv(q, k, v, rlse, delta, do, **kw)
+    rdq = fa.flash_bwd_dq_ref(q, k, v, rlse, delta, do, **kw)
+    rdk, rdv = fa.flash_bwd_dkv_ref(q, k, v, rlse, delta, do, **kw)
+    for got, want in ((dq, rdq), (dk, rdk), (dv, rdv)):
+        _assert_close(got, want, dtype)
+    assert {n: fa.LAUNCHES[n] - before[n] for n in before} == {
+        "flash_fwd": 1, "flash_bwd_dq": 1, "flash_bwd_dkv": 1}
+
+
+def test_flash_rejects_what_it_cannot_take(dev):
+    q, k, v, _ = _flash_inputs(dev, torch.float32, 1, 2, 1, 64, 64, 48, 0)
+    with pytest.raises(ValueError):      # head dim 48 is not built
+        fa.flash_fwd(q, k, v)
+    q, k, v, _ = _flash_inputs(dev, torch.float32, 1, 2, 1, 64, 64, 64, 0)
+    with pytest.raises(TypeError):
+        fa.flash_fwd(q, k.to(torch.bfloat16), v)
+    with pytest.raises(ValueError):
+        fa.flash_fwd(q.transpose(1, 2), k, v)
+
+
+def test_reduced_train_step_on_the_card_matches_the_cpu(dev):
+    """Two steps (stage 1, stage 2) of reduced qwen2-moe in f32 with the
+    flash branch and grouped MoE, through the reversible stack, on the card
+    (CUDA kernels) and on the CPU (twins): params agree to 1e-4 abs."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.core import schedule
+    from repro_torch.models.model import Model
+    from repro_torch.optim.adamw import AdamW
+    from repro_torch.train.trainer import make_train_step
+
+    cfg = get_config("qwen2-moe-a2.7b", reduced=True).replace(
+        moe_backend="grouped", use_flash_kernel=True, flash_block_q=64,
+        flash_block_k=64)
+    model = Model(cfg)
+    params = model.init(torch.Generator().manual_seed(0), "cpu")
+    rng = np.random.default_rng(1)
+    batches = [{"tokens": torch.from_numpy(rng.integers(
+        4, cfg.vocab_size, size=(2, 128)).astype(np.int32)),
+        "loss_mask": torch.ones((2, 128))} for _ in range(2)]
+
+    def run(device):
+        p = _to(params, device)
+        opt = AdamW(lr=1e-3)
+        st = opt.init(p)
+        losses = []
+        for stage, b in zip((1, 2), batches):
+            step = make_train_step(model, opt, mask_fn=getattr(
+                schedule, f"stage{stage}_mask"))
+            p, st, met = step(p, st, _to(b, device))
+            losses.append(met["loss"])
+        return p, losses
+
+    before = (ops.LAUNCHES, ops.TRANS_LAUNCHES, dict(fa.LAUNCHES))
+    gpu, gl = run(dev)
+    assert ops.LAUNCHES > before[0] and ops.TRANS_LAUNCHES > before[1]
+    assert all(fa.LAUNCHES[n] > before[2][n] for n in fa.LAUNCHES)
+    cpu, cl = run("cpu")
+    np.testing.assert_allclose(gl, cl, rtol=0, atol=1e-4)
+    from repro_torch.models.spec import tree_leaves
+    for (path, a), (_, b) in zip(tree_leaves(gpu), tree_leaves(cpu)):
+        assert (a.cpu() - b).abs().max().item() <= 1e-4, path

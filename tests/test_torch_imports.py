@@ -39,8 +39,20 @@ def test_no_jax_or_reference_imports(path):
 
 
 def test_scan_finds_the_package():
-    names = {p.name for p in FILES}
-    assert {"engine.py", "ops.py", "paged_attention.py", "model.py",
+    names = {str(p.relative_to(ROOT)) for p in FILES}
+    assert {"src/repro_torch/serving/engine.py",
+            "src/repro_torch/kernels/moe/ops.py",
+            "src/repro_torch/kernels/paged_attention.py",
+            "src/repro_torch/kernels/flash_attention.py",
+            "src/repro_torch/core/reversible.py",
+            "src/repro_torch/core/schedule.py",
+            "src/repro_torch/models/model.py",
+            "src/repro_torch/optim/adamw.py",
+            "src/repro_torch/train/trainer.py",
+            "src/repro_torch/train/driver.py",
+            "src/repro_torch/data/pipeline.py",
+            "src/repro_torch/checkpoint/manager.py",
+            "src/repro_torch/launch/train.py",
             "chip_smoke.py"} <= names
 
 
@@ -57,4 +69,12 @@ def test_entry_points_default_to_the_card():
     from repro_torch.launch import serve
     with pytest.raises(RuntimeError):
         serve.main(["--requests", "1"])
+    from repro_torch.data.pipeline import DataConfig
+    from repro_torch.launch import train as launch_train
+    from repro_torch.optim.adamw import AdamW
+    from repro_torch.train import driver
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        launch_train.main(["--reduced", "--moe-backend", "grouped"])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        driver.train(model, AdamW(), DataConfig(), driver.RunConfig())
     assert devices.resolve("cpu").type == "cpu"
