@@ -16,10 +16,14 @@ Phases, each raising on failure (so the exit code is non-zero):
               library call, with the L2 cache flushed before each launch:
               the grouped GEMM (forward read at the serving shapes, forward
               and transposed reads at the training shape), paged attention at the
-              serving shape, and the three flash-attention kernels (a sweep of
+              serving shape, the three flash-attention kernels (a sweep of
               causal / window / softcap / GQA group / head dim at a ragged
               length, then timed at the training shape: 1 x 16 heads x 2048
-              x 128, bf16, causal).
+              x 128, bf16, causal), the wkv scan in f32 (a ragged set of
+              grids, head sizes and lengths, decays down to 1e-6 and up to
+              0.999, then timed at rwkv6-3b's shape: 1 x 40 heads x 2048 x
+              64) and the standalone rmsnorm (f32 and bf16, timed at
+              (2048, 2560) bf16; no model calls it, as in the JAX package).
   3. serve    full-width, full-depth qwen2-moe-a2.7b (24 layers, d=2048,
               64 padded experts top-4, 4 shared, vocab 151936, bf16) with
               random weights from a seeded torch.Generator on the card,
@@ -46,6 +50,16 @@ Phases, each raising on failure (so the exit code is non-zero):
               max_memory_allocated, what is live at each peak (the
               allocator's history, at 1 x 2048), and the per-layer
               reconstruction error of the inversion.
+  6. train-rwkv  qwen's weights freed, full-width, full-depth rwkv6-3b
+              (32 layers, d=2560, 40 heads x 64, d_ff 8960, vocab 65536,
+              bf16; 3.49 B params, ~42 GB with AdamW's f32 moments) with the
+              wkv kernel, random weights from seed 0, through
+              ``train.driver.train``: AdamW, 1 x 2048 tokens, 6 steps with
+              the stage switch after 2, no checkpoint.  Counters zeroed just
+              before, read just after: the wkv kernel must launch 3 x 32
+              times per step (per layer: the forward, the inversion and the
+              backward's re-run); every loss and grad norm must be finite.
+              Then phase 5's check on one 1 x 2048 batch at all 32 layers.
 
 Prints a ``{"kernels": [...]}`` JSON line, the card's name and power limit
 (nvidia-smi), and as its last line
@@ -80,6 +94,13 @@ MIN_GRAD_COSINE = 0.99
 # activations (~0.4 GB) are smaller than its parameter grads (~1.2 GB), and
 # one where they are larger
 REV_BATCHES = (TRAIN_BATCH, 8)
+
+# rwkv6-3b training phase: full width and full depth (params, grads and
+# AdamW's moments ~42 GB fit one card)
+RWKV_ARCH, RWKV_BATCH, RWKV_SEQ = "rwkv6-3b", 1, 2048
+# the kernels the qwen train path launches (phase 4 requires each)
+QWEN_TRAIN_KERNELS = ("grouped_gemm", "grouped_gemm_transposed", "flash_fwd",
+                      "flash_bwd_dq", "flash_bwd_dkv")
 
 
 def _dtype_name(dt) -> str:
@@ -485,7 +506,139 @@ def check_flash(torch, timer, cfg, device):
     return results
 
 
-def phase_kernels(cfg, device):
+# wkv cases: (B, H, S, C, chunk), and decay ranges (w_lo, w_hi)
+WKV_CASES = ((1, 1, 64, 64, 64), (2, 3, 128, 32, 16), (3, 5, 320, 64, 32),
+             (1, 7, 960, 32, 64), (2, 40, 1024, 64, 32))
+WKV_DECAYS = ((1e-6, 1e-6), (0.999, 0.999), (1e-6, 0.999))
+
+
+def _wkv_inputs(torch, gen, device, B, H, S, C, w_lo=0.01, w_hi=0.99):
+    """r, k, v ~ 0.5 N(0, 1), u ~ 0.3 N(0, 1); w log-uniform in
+    [w_lo, w_hi]."""
+    rn = lambda *s: torch.randn(s, generator=gen, device=device)  # noqa: E731
+    lo, hi = float(torch.log(torch.tensor(w_lo))), float(torch.log(
+        torch.tensor(w_hi)))
+    w = torch.exp(lo + (hi - lo) * torch.rand((B, H, S, C), generator=gen,
+                                              device=device))
+    return (0.5 * rn(B, H, S, C), 0.5 * rn(B, H, S, C), 0.5 * rn(B, H, S, C),
+            w, 0.3 * rn(H, C))
+
+
+def _wkv_ops(B, H, S, C, T):
+    """f32 operations of the chunked wkv for these shapes: A's causal
+    channel sums (sub, two muls, add per channel-pair) and its bonus
+    diagonal, A.v over s <= t, the state read-out and update, and the two
+    decay scalings; plus the exps (on the SFUs, reported apart)."""
+    pairs = T * (T - 1) // 2
+    per_chunk = (pairs * C * 4 + T * C * 3 + (T * (T + 1) // 2) * C * 2
+                 + 2 * T * C * C + 2 * T * C * C + C * C + T * C * 3)
+    n = B * H * (S // T)
+    return n * per_chunk, n * (pairs * C + 2 * T * C + C)
+
+
+def check_wkv(torch, timer, rcfg, device):
+    """The wkv kernel against its twin in f32 over WKV_CASES and the decay
+    extremes, then timed at rwkv6-3b's training shape."""
+    from repro_torch.kernels import rwkv6_scan as rw
+    from repro_torch.models.ssm import KERNEL_CHUNK, rwkv_dims
+
+    gen = torch.Generator(device=device).manual_seed(6)
+    for B, H, S, C, T in WKV_CASES:
+        args = _wkv_inputs(torch, gen, device, B, H, S, C)
+        out = rw.rwkv6_scan(*args, chunk=T)
+        ref = rw.rwkv6_scan_ref(*args, chunk=T)[0]
+        torch.cuda.synchronize(device)
+        _check(f"rwkv6_scan B={B} H={H} S={S} C={C} T={T}", out, ref,
+               "float32")
+    for lo, hi in WKV_DECAYS:
+        args = _wkv_inputs(torch, gen, device, 1, 8, 512, 64, lo, hi)
+        out = rw.rwkv6_scan(*args)
+        ref = rw.rwkv6_scan_ref(*args)[0]
+        torch.cuda.synchronize(device)
+        _check(f"rwkv6_scan decays in [{lo:g}, {hi:g}]", out, ref, "float32")
+
+    H, C = rwkv_dims(rcfg)
+    B, S, T = RWKV_BATCH, RWKV_SEQ, KERNEL_CHUNK
+    args = _wkv_inputs(torch, gen, device, B, H, S, C)
+    out = rw.rwkv6_scan(*args, chunk=T)
+    ref = rw.rwkv6_scan_ref(*args, chunk=T)[0]
+    torch.cuda.synchronize(device)
+    err = _check(f"rwkv6_scan train B={B} H={H} S={S} C={C} T={T}", out, ref,
+                 "float32")
+    del out, ref
+    nbytes = 5 * B * H * S * C * 4 + H * C * 4    # r, k, v, w in; o out; u
+    ops, exps = _wkv_ops(B, H, S, C, T)
+    bound, by = _bound_ms(nbytes, ops, "float32")
+    ms = timer(lambda: rw.rwkv6_scan(*args, chunk=T))
+    plain = timer(lambda: rw.rwkv6_scan_ref(*args, chunk=T), reps=5)
+    # the backward, autograd over the twin (no kernel; one call per layer
+    # and step): its time and what it allocates above its inputs
+    ins = [a.detach().requires_grad_() for a in args]
+    out = rw.rwkv6_scan_trainable(*ins, chunk=T)
+    ct = torch.randn(out.shape, generator=gen, device=device)
+    backward = lambda: torch.autograd.grad(out, ins, ct,  # noqa: E731
+                                           retain_graph=True)
+    torch.cuda.synchronize(device)
+    torch.cuda.reset_peak_memory_stats(device)
+    before = torch.cuda.memory_allocated(device)
+    backward()
+    torch.cuda.synchronize(device)
+    above = torch.cuda.max_memory_allocated(device) - before
+    bwd_ms = timer(backward, reps=5)
+    del ins, out, ct
+    print(f"[kernels] rwkv6_scan backward (autograd over the twin, no "
+          f"kernel) at the same shape: {bwd_ms:.4f} ms per call, "
+          f"{above / 2**30:.3f} GiB above its inputs", flush=True)
+    print(f"[kernels] rwkv6_scan train f32 (B={B}, H={H}, S={S}, C={C}, "
+          f"T={T}): {ms:.4f} ms, twin {plain:.4f} ms, library none (no "
+          f"PyTorch call computes the wkv recurrence); bound {bound:.4f} ms by "
+          f"{by} ({nbytes / 1e6:.1f} MB, {ops / 1e9:.3f} GFLOP f32, and "
+          f"{exps / 1e6:.1f} M exps on the SFUs); {B * H} blocks on "
+          f"{torch.cuda.get_device_properties(device).multi_processor_count} "
+          f"SMs", flush=True)
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain,
+            "bound_ms": bound, "bound_by": by, "library_ms": None}
+
+
+RMSNORM_SHAPES = ((4, 128), (2, 7, 300), (1, 128, 2048), (2048, 2560))
+
+
+def check_rmsnorm(torch, timer, device):
+    """The standalone rmsnorm against its twin in f32 and bf16, timed at
+    (2048, 2560) bf16 with ``torch.nn.functional.rms_norm`` as the library
+    yardstick (the port never calls it)."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import rmsnorm as rn
+
+    gen = torch.Generator(device=device).manual_seed(7)
+    result = None
+    for dt in (torch.float32, torch.bfloat16):
+        dn = _dtype_name(dt)
+        for shape in RMSNORM_SHAPES:
+            x = torch.randn(shape, generator=gen, device=device).to(dt)
+            scale = (0.2 * torch.randn(shape[-1:], generator=gen,
+                                       device=device)).to(dt)
+            err = _check(f"rmsnorm {dn} {shape}", rn.rmsnorm(x, scale),
+                         rn.rmsnorm_ref(x, scale), dn)
+            if dn != "bfloat16" or shape != RMSNORM_SHAPES[-1]:
+                continue
+            rows, d = shape
+            nbytes = 2 * rows * d * x.element_size() + d * 4
+            bound, by = _bound_ms(nbytes, 5.0 * rows * d, "float32")
+            ms = timer(lambda: rn.rmsnorm(x, scale))
+            plain = timer(lambda: rn.rmsnorm_ref(x, scale))
+            weight = (1.0 + scale.float()).to(dt)
+            lib = timer(lambda: F.rms_norm(x, (d,), weight, 1e-6))
+            print(f"[kernels] rmsnorm bf16 {shape}: {ms:.4f} ms, twin "
+                  f"{plain:.4f} ms, library {lib:.4f} ms "
+                  f"(torch.nn.functional.rms_norm); bound {bound:.5f} ms by "
+                  f"{by} ({nbytes / 1e6:.1f} MB)", flush=True)
+            result = {"max_abs_err": err, "ms": ms, "plain_ms": plain,
+                      "bound_ms": bound, "bound_by": by, "library_ms": lib}
+    return result
+
+
+def phase_kernels(cfg, rcfg, device):
     import torch
     timer = Timer(torch, device)
     fwd_train, transposed = check_grouped_gemm_train(torch, timer, cfg,
@@ -497,6 +650,8 @@ def phase_kernels(cfg, device):
     # launches the same read at 2048 tokens
     out["grouped_gemm"]["train_shape"] = fwd_train
     out.update(check_flash(torch, timer, cfg, device))
+    out["rwkv6_scan"] = check_wkv(torch, timer, rcfg, device)
+    out["rmsnorm"] = check_rmsnorm(torch, timer, device)
     del timer
     gc.collect()
     torch.cuda.empty_cache()
@@ -625,8 +780,11 @@ def _train_cfg(cfg):
 def _reset_counts():
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import paged_attention as pa
+    from repro_torch.kernels import rmsnorm as rn
+    from repro_torch.kernels import rwkv6_scan as rw
     from repro_torch.kernels.moe import ops
     ops.LAUNCHES = ops.TRANS_LAUNCHES = pa.LAUNCHES = 0
+    rw.LAUNCHES = rn.LAUNCHES = 0
     for name in fa.LAUNCHES:
         fa.LAUNCHES[name] = 0
 
@@ -634,13 +792,21 @@ def _reset_counts():
 def _read_counts():
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import paged_attention as pa
+    from repro_torch.kernels import rmsnorm as rn
+    from repro_torch.kernels import rwkv6_scan as rw
     from repro_torch.kernels.moe import ops
     return {"grouped_gemm": ops.LAUNCHES,
             "grouped_gemm_transposed": ops.TRANS_LAUNCHES,
-            "paged_attention": pa.LAUNCHES, **fa.LAUNCHES}
+            "paged_attention": pa.LAUNCHES, **fa.LAUNCHES,
+            "rwkv6_scan": rw.LAUNCHES, "rmsnorm": rn.LAUNCHES}
 
 
-def phase_train(cfg, device):
+def _train(tcfg, device, tag, batch, seq, what):
+    """``TRAIN_STEPS`` steps of ``tcfg`` through ``train.driver.train`` on
+    random weights from seed 0, AdamW, stage 2 from step STAGE1 + 1, no
+    checkpoint; the kernel counters zeroed just before and read just after.
+    Raises unless every step ran with a finite loss and grad norm.  Returns
+    (model, params, data config, launches, steps)."""
     import math
     import torch
     from repro_torch import obs
@@ -649,19 +815,18 @@ def phase_train(cfg, device):
     from repro_torch.optim.adamw import AdamW, cosine_schedule
     from repro_torch.train import driver
 
-    tcfg = _train_cfg(cfg)
     model = Model(tcfg)
     gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats(device)
-    print(f"[train] {tcfg.name} cut to {tcfg.num_layers} layers (full width): "
-          f"{model.num_params():,} params, dtype {tcfg.dtype}, batch "
-          f"{TRAIN_BATCH} x {TRAIN_SEQ}, {TRAIN_STEPS} steps, stage 2 from "
-          f"step {STAGE1 + 1}; memory in use before "
+    print(f"[{tag}] {tcfg.name} {what}: {model.num_params():,} params, "
+          f"{tcfg.num_layers} layers, d={tcfg.d_model}, dtype {tcfg.dtype}, "
+          f"batch {batch} x {seq}, {TRAIN_STEPS} steps, stage 2 from step "
+          f"{STAGE1 + 1}; memory in use before "
           f"{torch.cuda.memory_allocated(device) / 2**30:.2f} GiB", flush=True)
     tel = obs.Telemetry()
-    dc = DataConfig(vocab_size=tcfg.vocab_size, seq_len=TRAIN_SEQ,
-                    global_batch=TRAIN_BATCH)
+    dc = DataConfig(vocab_size=tcfg.vocab_size, seq_len=seq,
+                    global_batch=batch)
     rc = driver.RunConfig(total_steps=TRAIN_STEPS, stage1_steps=STAGE1,
                           ckpt_dir=None, log_every=TRAIN_STEPS)
     opt = AdamW(lr=1e-4, weight_decay=0.01,
@@ -670,23 +835,23 @@ def phase_train(cfg, device):
     t0 = time.perf_counter()
     params, opt_state, losses = driver.train(
         model, opt, dc, rc, device=device, seed=SEED, telemetry=tel,
-        log_fn=lambda m: print(f"[train] {m}", flush=True))
+        log_fn=lambda m: print(f"[{tag}] {m}", flush=True))
     torch.cuda.synchronize(device)
     wall = time.perf_counter() - t0
     launches = _read_counts()
     peak = torch.cuda.max_memory_allocated(device)
     steps = [e for e in tel.events if e["kind"] == "train_step"]
     for e in steps:
-        print(f"[train] step {e['step']} stage {e['stage']}: loss "
+        print(f"[{tag}] step {e['step']} stage {e['stage']}: loss "
               f"{e['loss']:.6f}, grad norm {e['grad_norm']:.6f}, "
               f"{e['step_s']:.3f} s", flush=True)
     steady = [e["step_s"] for e in steps[1:]]
     step_s = sum(steady) / len(steady)
-    print(f"[train] {len(steps)} steps in {wall:.2f} s (weights drawn on the "
+    print(f"[{tag}] {len(steps)} steps in {wall:.2f} s (weights drawn on the "
           f"card included); steps 2-{len(steps)}: {step_s:.3f} s/step, "
-          f"{TRAIN_BATCH * TRAIN_SEQ / step_s:.1f} tokens/s; "
+          f"{1 / step_s:.3f} steps/s, {batch * seq / step_s:.1f} tokens/s; "
           f"max_memory_allocated {peak / 2**30:.2f} GiB", flush=True)
-    print(f"[train] launches {launches} ({len(steps)} steps)", flush=True)
+    print(f"[{tag}] launches {launches} ({len(steps)} steps)", flush=True)
     if len(steps) != TRAIN_STEPS:
         raise RuntimeError(f"{len(steps)} train steps ran, not {TRAIN_STEPS}")
     if not all(math.isfinite(e["loss"]) and math.isfinite(e["grad_norm"])
@@ -694,12 +859,41 @@ def phase_train(cfg, device):
         raise RuntimeError("a non-finite loss or grad norm")
     if tel.counter("train.nonfinite_grad_steps").value:
         raise RuntimeError("the optimizer skipped a non-finite step")
-    for name, n in launches.items():
-        if name != "paged_attention" and n <= 0:
+    del opt_state
+    return model, params, dc, launches, len(steps)
+
+
+def phase_train(cfg, device):
+    tcfg = _train_cfg(cfg)
+    model, params, dc, launches, _ = _train(
+        tcfg, device, "train", TRAIN_BATCH, TRAIN_SEQ,
+        "cut to 4 layers (full width)")
+    for name in QWEN_TRAIN_KERNELS:
+        if launches[name] <= 0:
             raise RuntimeError(f"{name} kernel never launched on the train "
                                f"path")
-    del opt_state
     return model, params, dc, launches
+
+
+def phase_train_rwkv(rcfg, device):
+    """Phase 6: rwkv6-3b at full width and depth, then the reversible check
+    at 1 x 2048 (phase 5's, at 32 layers)."""
+    import torch
+    from repro_torch.data.pipeline import packed_batches
+    from repro_torch.train.trainer import to_device_batch
+
+    model, params, dc, launches, n_steps = _train(
+        rcfg, device, "train-rwkv", RWKV_BATCH, RWKV_SEQ,
+        "at full width and full depth")
+    want = 3 * rcfg.num_layers * n_steps
+    if launches["rwkv6_scan"] != want:
+        raise RuntimeError(f"the wkv kernel launched {launches['rwkv6_scan']} "
+                           f"times, expected 3 x {rcfg.num_layers} layers x "
+                           f"{n_steps} steps = {want}")
+    batch = to_device_batch(next(packed_batches(dc)), device)
+    _reversible_check(torch, model, params, batch, device,
+                      f"rwkv batch {RWKV_BATCH} x {RWKV_SEQ}", breakdown=True)
+    return launches
 
 
 # ------------------------------------------------------------- phase 5
@@ -807,6 +1001,10 @@ SOURCES = {
                      "src/repro/kernels/flash_attention.py:195"),
     "flash_bwd_dkv": ("src/repro_torch/csrc/flash_attention.cu",
                       "src/repro/kernels/flash_attention.py:225"),
+    "rwkv6_scan": ("src/repro_torch/csrc/rwkv6_scan.cu",
+                   "src/repro/kernels/rwkv6_scan.py:27"),
+    "rmsnorm": ("src/repro_torch/csrc/rmsnorm.cu",
+                "src/repro/kernels/rmsnorm.py:15"),
 }
 
 
@@ -830,13 +1028,27 @@ def main() -> int:
 
     from repro_torch.configs.base import get_config
     cfg = get_config("qwen2-moe-a2.7b").replace(moe_backend="grouped")
+    rcfg = get_config(RWKV_ARCH).replace(use_flash_kernel=True)
+
+    t0 = time.perf_counter()
+
+    def done(phase):
+        print(f"[time] {phase} done at {time.perf_counter() - t0:.1f} s",
+              flush=True)
 
     phase_build()
-    stats = phase_kernels(cfg, device)
+    done("build")
+    stats = phase_kernels(cfg, rcfg, device)
+    done("kernels")
     by_path = {"serve": phase_serve(cfg, device)}
+    done("serve")
     model, params, dc, by_path["train"] = phase_train(cfg, device)
+    done("train")
     phase_reversible(model, params, dc, device)
+    done("reversible")
     del model, params
+    by_path["train-rwkv"] = phase_train_rwkv(rcfg, device)
+    done("train-rwkv")
 
     rows = []
     for name, (src, replaces) in SOURCES.items():

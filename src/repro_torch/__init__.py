@@ -12,5 +12,8 @@ two-stage reversible full-parameter training: the train-path attention with
 hand-written CUDA flash-attention kernels (forward, dq, dk/dv), the grouped
 GEMM's backward, the reversible stack, the chunked loss, the stage masks,
 AdamW, the train step, the data pipeline, checkpoints, the driver and its
-launcher.
+launcher.  Slice 3 trains rwkv6-3b at full width and depth: the RWKV6 time
+and channel mixes as a reversible unit, with a hand-written CUDA wkv scan,
+and the standalone rmsnorm kernel (which, as in the JAX package, no model
+calls).
 """

@@ -120,7 +120,7 @@ ARCHS = [
 ]
 
 #: architectures whose config module this port carries
-PORTED = {"qwen2-moe-a2.7b": "qwen2_moe_a2_7b"}
+PORTED = {"qwen2-moe-a2.7b": "qwen2_moe_a2_7b", "rwkv6-3b": "rwkv6_3b"}
 
 
 def get_config(name: str, reduced: bool = False) -> ModelConfig:

@@ -53,6 +53,10 @@ SIGNATURES = {
     "repro_flash_bwd_dq": [_P] * 7 + _FLASH_TAIL,
     # q, k, v, do, lse, delta, dk, dv, then _FLASH_TAIL
     "repro_flash_bwd_dkv": [_P] * 8 + _FLASH_TAIL,
+    # r, k, v, lw, u, out, B, H, S, C, T, stream
+    "repro_rwkv6_scan": [_P] * 6 + [_I] * 5 + [_P],
+    # x, scale, out, rows, d, eps, dtype, stream
+    "repro_rmsnorm": [_P] * 3 + [_I, _I, _F, _I, _P],
 }
 
 #: dtype codes shared with the C side

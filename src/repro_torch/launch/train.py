@@ -1,7 +1,8 @@
 """Training launcher for the port: two-stage reversible full-parameter
 fine-tuning.
 
-    PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2-moe-a2.7b \
+    PYTHONPATH=src python -m repro_torch.launch.train \
+        [--arch {qwen2-moe-a2.7b,rwkv6-3b}] \
         [--reduced] [--layers N] [--device {cuda,cpu}] [--steps 100] [--stage1 20] \
         [--batch 4] [--seq 256] [--lr 1e-3] [--n-micro 1] \
         [--moe-backend grouped] [--use-flash-kernel] [--ckpt-dir DIR] \
@@ -12,7 +13,8 @@ The flags are the reference launcher's (``repro.launch.train``) plus
 ``--device cpu``), ``--seed`` (weights are random, drawn from a seeded
 ``torch.Generator`` on the device), ``--layers`` (cut the depth, keep
 every width: full-depth qwen2-moe-a2.7b with AdamW's state needs ~184 GB,
-more than one card holds), ``--ckpt-dir`` (no default: without it the
+more than one card holds; rwkv6-3b, ~42 GB, trains at full depth),
+``--ckpt-dir`` (no default: without it the
 run writes no checkpoint and resumes from none — a full-width checkpoint
 is tens of GB), ``--ckpt-every`` (default: a fifth of the run, as the
 reference hard-codes; 0: never) and ``--profile N`` (trace the run with
@@ -21,8 +23,10 @@ raise (ROADMAP.md queue 1): ``--optimizer lomo|galore``, ``--compress``,
 ``--fused-optimizer``, ``--ep``, ``--layer-groups``/``--delta-rank``,
 ``--plan``/``--hbm-budget-gb``, ``--telemetry``, ``--audit-every``; so does
 the einsum MoE backend, the reference config's default — MoE configs need
-``--moe-backend grouped``.  On this slice's path the card runs the CUDA
-flash-attention kernels (with ``--use-flash-kernel``) and grouped GEMMs.
+``--moe-backend grouped`` (a non-MoE family such as rwkv6-3b needs no MoE
+flag).  With ``--use-flash-kernel`` the card runs the CUDA flash-attention
+kernels and grouped GEMMs for qwen2-moe-a2.7b, and the CUDA wkv kernel for
+rwkv6-3b.
 """
 from __future__ import annotations
 
@@ -73,8 +77,9 @@ def main(argv=None):
     ap.add_argument("--layer-groups", type=int, default=0)
     ap.add_argument("--delta-rank", type=int, default=0)
     ap.add_argument("--use-flash-kernel", action="store_true",
-                    help="flash attention on the train path (CUDA kernels "
-                         "on the card, their plain twins on the CPU)")
+                    help="the train path's kernels: flash attention, or the "
+                         "wkv scan for rwkv6 (CUDA kernels on the card, "
+                         "their plain twins on the CPU)")
     ap.add_argument("--audit-every", type=int, default=0, metavar="N")
     ap.add_argument("--telemetry", default=None, metavar="PATH")
     ap.add_argument("--profile", type=int, default=0, metavar="N",

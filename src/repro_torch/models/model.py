@@ -1,19 +1,21 @@
-"""The dense/MoE reversible model — port of ``repro.models.model``: the
-training path (reversible stack, chunked cross-entropy loss) and the
-serving paths (prefill against a dense per-row KV buffer, decode against
-the paged KV pool).
+"""The dense/MoE and RWKV6 reversible models — port of
+``repro.models.model``: the training path (reversible stack, chunked
+cross-entropy loss) and, for dense/MoE, the serving paths (prefill against
+a dense per-row KV buffer, decode against the paged KV pool).
 
 Each layer is a reversible unit over the two feature streams (RevFFN):
-y1 = x1 + F(x1, x2) with F the cross-branch attention (Q from stream 1,
-K/V from stream 2, through the P_up/P_down adapters), then y2 = x2 + G(y1)
-with G the MoE (or MLP) block; the inverse runs ``inverse_fp_iters``
-fixed-point iterations for F.
+y1 = x1 + F(x1, x2), then y2 = x2 + G(y1).  For dense/MoE, F is the
+cross-branch attention (Q from stream 1, K/V from stream 2, through the
+P_up/P_down adapters) and G the MoE (or MLP) block; the inverse runs
+``inverse_fp_iters`` fixed-point iterations for F.  For RWKV6 (family
+"ssm"), F is the time mix of stream 2 alone and G the channel mix, so the
+inverse is closed-form; its decode paths are not ported yet.
 
 The param tree keeps the reference's key paths and stacked leading (L, ...)
 dims, so weights cross between the packages by path
 (``repro_torch.interop``); the reference's layer ``scan`` is a Python loop
-over layer slices.  Other families, per-layer activation policies, lean
-layer groups and fold_adapters are not ported yet.
+over layer slices.  The other families, per-layer activation policies,
+lean layer groups and fold_adapters are not ported yet.
 """
 from __future__ import annotations
 
@@ -29,7 +31,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.core import adapters as ad
 from repro_torch.core.reversible import (make_coupled, merge_streams,
                                          reversible_stack, split_streams)
-from repro_torch.models import common, moe as moe_lib, spec
+from repro_torch.models import common, moe as moe_lib, spec, ssm as ssm_lib
 from repro_torch.models.common import (attention, attention_decode,
                                        attn_specs, init_kv_cache,
                                        lm_head_logits, mlp, mlp_specs,
@@ -65,9 +67,15 @@ def _stack_layers(tree, n: int):
 
 # ===================================================================== blocks
 
+def _normed(cfg: ModelConfig, x, scale):
+    """rms_norm of a stream, in the model dtype: the train path's streams
+    are f64 (``Model._embed_streams``), the blocks compute in cfg.dtype."""
+    return rms_norm(x, scale, cfg.norm_eps).to(devices.torch_dtype(cfg.dtype))
+
+
 def _attn_in(cfg: ModelConfig, lp, x1, x2):
-    q_in = ad.up(lp["attn_ad"], rms_norm(x1, lp["norm1"], cfg.norm_eps))
-    kv_in = ad.up(lp["attn_ad"], rms_norm(x2, lp["norm2"], cfg.norm_eps))
+    q_in = ad.up(lp["attn_ad"], _normed(cfg, x1, lp["norm1"]))
+    kv_in = ad.up(lp["attn_ad"], _normed(cfg, x2, lp["norm2"]))
     return q_in, kv_in
 
 
@@ -86,14 +94,14 @@ def _attn_F(cfg: ModelConfig):
 def _mlp_G(cfg: ModelConfig):
     """Paper Eq. 2: FFN driven by the updated left stream."""
     def G(p, sh, ctx, i, y1, _y2=None):
-        h = rms_norm(y1, p["norm_mlp"], cfg.norm_eps)
+        h = _normed(cfg, y1, p["norm_mlp"])
         return ad.down(p["mlp_ad"], mlp(p["mlp"], ad.up(p["mlp_ad"], h)))
     return G
 
 
 def _moe_G(cfg: ModelConfig):
     def G(p, sh, ctx, i, y1, _y2=None):
-        h = ad.up(p["mlp_ad"], rms_norm(y1, p["norm_mlp"], cfg.norm_eps))
+        h = ad.up(p["mlp_ad"], _normed(cfg, y1, p["norm_mlp"]))
         y, _aux = moe_lib.moe_apply(p["moe"], cfg, h)
         return ad.down(p["mlp_ad"], y)
     return G
@@ -167,7 +175,48 @@ def build_moe(cfg: ModelConfig):
     return build_dense(cfg, use_moe=True)
 
 
-_BUILDERS = {"dense": build_dense, "moe": build_moe}
+def _rwkv_serving(what: str):
+    def not_ported(*_args, **_kw):
+        raise NotImplementedError(
+            f"rwkv6 {what}: not ported yet — recurrent decode needs the dense "
+            f"engine mode (ROADMAP.md queue 1, item 1)")
+    return not_ported
+
+
+def build_rwkv(cfg: ModelConfig):
+    """RWKV6 as a reversible unit, coupled in the "standard" mode: F, the
+    time mix, reads stream 2 only, so the inverse is closed-form."""
+    d = cfg.d_model
+
+    def F(p, sh, ctx, i, x1, x2):           # token mix reads stream 2 only
+        h = ad.up(p["attn_ad"], _normed(cfg, x2, p["norm2"]))
+        return ad.down(p["attn_ad"], ssm_lib.rwkv_time_apply(p["time"], cfg, h))
+
+    def G(p, sh, ctx, i, y1, _y2=None):     # channel mix driven by stream 1
+        h = ad.up(p["mlp_ad"], _normed(cfg, y1, p["norm_mlp"]))
+        return ad.down(p["mlp_ad"],
+                       ssm_lib.rwkv_channel_apply(p["chan"], cfg, h))
+
+    fwd, inv = make_coupled(F, G, mode="standard")
+    sp = {
+        "norm2": norm_spec(cfg.stream_dim),
+        "attn_ad": ad.adapter_specs(d),
+        "time": ssm_lib.rwkv_time_specs(cfg),
+        "norm_mlp": norm_spec(cfg.stream_dim),
+        "mlp_ad": ad.adapter_specs(d),
+        "chan": ssm_lib.rwkv_channel_specs(cfg),
+    }
+
+    def half_inv(lp, sh, ctx, i, x1, y1, y2):
+        return y2 - G(lp, sh, ctx, i, y1)
+
+    return [StackDef("layers", cfg.num_layers, sp, fwd, inv, half_inv,
+                     _rwkv_serving("decode"), _rwkv_serving("cache_init"),
+                     _rwkv_serving("paged decode"),
+                     _rwkv_serving("page pool"))], {}
+
+
+_BUILDERS = {"dense": build_dense, "moe": build_moe, "ssm": build_rwkv}
 
 
 # ===================================================================== model
@@ -232,8 +281,20 @@ class Model(nn.Module):
     # ------------------------------------------------------------ forward
 
     def _embed_streams(self, params, tokens):
+        """The train path's two streams, in f64 whatever the model dtype;
+        the blocks still compute in the model dtype (``_normed``).
+
+        A layer's inverse subtracts what its forward added, and both round.
+        In bf16 that leaves about one ulp of the stream per layer; in f32
+        the reconstructed stream is off by an f32 ulp, which now and then
+        flips a block input's bf16 rounding, and the flip grows through the
+        layers below.  At rwkv6-3b's 32 layers the grads then leave those
+        of stored activations (smallest cosine 0.38 with bf16 streams, 0.95
+        with f32; PERF.md).  An f64 stream is off by an f64 ulp, far below
+        any f32 or bf16 rounding of a block's input, so the inverse
+        rebuilds every block input exactly."""
         B, S = tokens.shape
-        h = params["embed"][tokens]
+        h = params["embed"][tokens].double()
         positions = torch.arange(S, dtype=torch.int32,
                                  device=tokens.device)[None].expand(B, S)
         x1, x2 = split_streams(h)
@@ -261,8 +322,7 @@ class Model(nn.Module):
             raise NotImplementedError(
                 "encoder / image extras: not ported yet (ROADMAP.md queue 1)")
         y1, y2 = self.hidden_streams(params, tokens, save_memory)
-        return rms_norm(merge_streams(y1, y2), params["final_norm"],
-                        self.cfg.norm_eps)
+        return self._final_norm(params, y1, y2)
 
     def forward(self, params, tokens, extras=None, save_memory=True):
         return self.lm_logits(params,
@@ -285,9 +345,12 @@ class Model(nn.Module):
     def loss_from_streams(self, params, y1, y2, batch):
         """Tail of ``loss`` from the main stacks' output streams: final norm
         + LM head + token CE."""
-        h = rms_norm(merge_streams(y1, y2), params["final_norm"],
-                     self.cfg.norm_eps)
-        return self._token_loss(params, h, batch)
+        return self._token_loss(params, self._final_norm(params, y1, y2),
+                                batch)
+
+    def _final_norm(self, params, y1, y2):
+        """Final norm of the merged streams, in the model dtype."""
+        return _normed(self.cfg, merge_streams(y1, y2), params["final_norm"])
 
     def _token_loss(self, params, h, batch):
         """Masked, sequence-chunked CE from final-normed hidden states.  Each
@@ -339,7 +402,6 @@ class Model(nn.Module):
         """Prefill/decode step up to the final norm.  token: (B, Sq); row b
         starts at position cache["t"][b].  The cache is updated in place and
         its ``t`` advanced by Sq.  Returns (h (B, Sq, d), cache)."""
-        cfg = self.cfg
         t = cache["t"]
         h = params["embed"][token]
         ctx = {"t": t}
@@ -352,7 +414,7 @@ class Model(nn.Module):
 
         x1, x2 = self._walk(params, x1, x2, step)
         cache["t"] = t + token.shape[1]
-        h = rms_norm(merge_streams(x1, x2), params["final_norm"], cfg.norm_eps)
+        h = self._final_norm(params, x1, x2)
         return h, cache
 
     # ------------------------------------------------------- paged decode
@@ -380,7 +442,6 @@ class Model(nn.Module):
         per-slot positions; page_tables: (B, n_pages) int32; write_mask: (B,)
         bool — rows not selected write nothing.  The pools are updated in
         place.  Returns (h (B, 1, d), pools)."""
-        cfg = self.cfg
         B, Sq = token.shape
         assert Sq == 1, "paged decode is single-position"
         h = params["embed"][token]
@@ -394,7 +455,7 @@ class Model(nn.Module):
             return y1, y2
 
         x1, x2 = self._walk(params, x1, x2, step)
-        h = rms_norm(merge_streams(x1, x2), params["final_norm"], cfg.norm_eps)
+        h = self._final_norm(params, x1, x2)
         return h, pools
 
     def lm_logits(self, params, h):

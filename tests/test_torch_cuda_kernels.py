@@ -1,8 +1,10 @@
 """The port's CUDA kernels against their plain twins on the card, at edge
 shapes the smoke does not reach (ragged K and N, several query heads per KV
 head, small head dims, kv_len off the page grid, ragged sequence lengths,
-fully masked rows), the reduced engine on the card against the same engine
-on the CPU, and the reduced training step on the card against the CPU.
+fully masked rows, wkv chunks and head sizes, decays at the floor and near
+1, rmsnorm rows off the 16-byte grid), the reduced engine on the card
+against the same engine on the CPU, and the reduced training steps of
+qwen2-moe and rwkv6 on the card against the CPU.
 
 Needs a CUDA GPU and nvcc; skipped elsewhere.  Run on a GPU machine with
 
@@ -18,6 +20,8 @@ torch = pytest.importorskip("torch")
 
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels import paged_attention as pa  # noqa: E402
+from repro_torch.kernels import rmsnorm as rn  # noqa: E402
+from repro_torch.kernels import rwkv6_scan as rw  # noqa: E402
 from repro_torch.kernels.moe import dispatch as dsp  # noqa: E402
 from repro_torch.kernels.moe import ops  # noqa: E402
 from repro_torch.kernels.moe.ref import grouped_matmul_ref  # noqa: E402
@@ -283,5 +287,130 @@ def test_reduced_train_step_on_the_card_matches_the_cpu(dev):
     cpu, cl = run("cpu")
     np.testing.assert_allclose(gl, cl, rtol=0, atol=1e-4)
     from repro_torch.models.spec import tree_leaves
+    for (path, a), (_, b) in zip(tree_leaves(gpu), tree_leaves(cpu)):
+        assert (a.cpu() - b).abs().max().item() <= 1e-4, path
+
+
+def _wkv_inputs(dev, B, H, S, C, seed, w_lo=0.01, w_hi=0.99):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    r = lambda *s: torch.randn(s, generator=g, device=dev)     # noqa: E731
+    w = w_lo + (w_hi - w_lo) * torch.rand((B, H, S, C), generator=g,
+                                          device=dev)
+    return (0.5 * r(B, H, S, C), 0.5 * r(B, H, S, C), 0.5 * r(B, H, S, C), w,
+            0.3 * r(H, C))
+
+
+@pytest.mark.parametrize("B,H,S,C,chunk", [
+    (1, 2, 64, 64, 16), (2, 3, 128, 64, 32), (1, 1, 256, 64, 64),
+    (1, 2, 128, 32, 32), (3, 5, 192, 32, 64), (2, 4, 48, 64, 16),
+    (1, 40, 2048, 64, 64)])
+def test_wkv_kernel_matches_twin(dev, B, H, S, C, chunk):
+    args = _wkv_inputs(dev, B, H, S, C, seed=S + C)
+    before = rw.LAUNCHES
+    out = rw.rwkv6_scan(*args, chunk=chunk)
+    assert rw.LAUNCHES == before + 1
+    _assert_close(out, rw.rwkv6_scan_ref(*args, chunk=chunk)[0],
+                  torch.float32)
+
+
+@pytest.mark.parametrize("w_lo,w_hi", [(1e-6, 1e-6), (0.999, 0.999),
+                                       (1e-6, 0.999), (0.0, 1e-30)])
+def test_wkv_kernel_at_extreme_decays(dev, w_lo, w_hi):
+    """Decays at the floor (w = 0 is clamped to 1e-38: a chunk's log decay
+    sums to -5600) and near 1; a factorised exp would overflow here."""
+    args = _wkv_inputs(dev, 2, 3, 256, 64, seed=11, w_lo=w_lo, w_hi=w_hi)
+    _assert_close(rw.rwkv6_scan(*args), rw.rwkv6_scan_ref(*args)[0],
+                  torch.float32)
+
+
+def test_wkv_rejects_what_it_cannot_take(dev):
+    r, k, v, w, u = _wkv_inputs(dev, 1, 2, 64, 64, seed=0)
+    with pytest.raises(TypeError):
+        rw.rwkv6_scan(r.to(torch.bfloat16), k, v, w, u)
+    with pytest.raises(ValueError):      # head size 48 is not built
+        rw.rwkv6_scan(*_wkv_inputs(dev, 1, 2, 64, 48, seed=0))
+    with pytest.raises(ValueError):      # S not a multiple of the chunk
+        rw.rwkv6_scan(*_wkv_inputs(dev, 1, 2, 96, 64, seed=0))
+    with pytest.raises(ValueError):      # chunk 8 is not built
+        rw.rwkv6_scan(r, k, v, w, u, chunk=8)
+    with pytest.raises(ValueError):
+        rw.rwkv6_scan(r.transpose(2, 3), k, v, w, u)
+
+
+def test_wkv_trainable_grads_on_the_card_match_the_cpu(dev):
+    args = [a.cpu() for a in _wkv_inputs(dev, 2, 3, 256, 64, seed=4)]
+    ct = torch.randn((2, 3, 256, 64), generator=torch.Generator().manual_seed(1))
+
+    def grads(device):
+        ins = [a.to(device).requires_grad_() for a in args]
+        rw.rwkv6_scan_trainable(*ins).backward(ct.to(device))
+        return [a.grad.cpu() for a in ins]
+
+    for got, want in zip(grads(dev), grads("cpu")):
+        assert (got - want).abs().max().item() <= 1e-4 * want.abs().max().item()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(4, 128), (2, 7, 300), (1, 128, 2048),
+                                   (2048, 2560), (3, 5)])
+def test_rmsnorm_matches_twin(dev, dtype, shape):
+    g = torch.Generator(device=dev).manual_seed(shape[-1])
+    x = torch.randn(shape, generator=g, device=dev).to(dtype)
+    s = (0.2 * torch.randn(shape[-1:], generator=g, device=dev)).to(dtype)
+    before = rn.LAUNCHES
+    out = rn.rmsnorm(x, s)
+    assert rn.LAUNCHES == before + 1 and out.dtype == dtype
+    _assert_close(out, rn.rmsnorm_ref(x, s), dtype)
+
+
+def test_rmsnorm_unaligned_rows_and_rejects(dev):
+    """A contiguous view that starts off a 16-byte boundary takes the
+    one-element path."""
+    flat = torch.randn(1 + 6 * 256, device=dev)
+    x = flat[1:].view(6, 256)
+    s = torch.randn(256, device=dev) * 0.2
+    _assert_close(rn.rmsnorm(x, s), rn.rmsnorm_ref(x, s), torch.float32)
+    with pytest.raises(ValueError):
+        rn.rmsnorm(x.t(), s)
+    with pytest.raises(TypeError):
+        rn.rmsnorm(x.half(), s)
+
+
+def test_reduced_rwkv_train_step_on_the_card_matches_the_cpu(dev):
+    """Two steps (stage 1, stage 2) of reduced rwkv6-3b in f32 with the wkv
+    kernel, through the reversible stack, on the card and on the CPU:
+    params agree to 1e-4 abs."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.core import schedule
+    from repro_torch.models.model import Model
+    from repro_torch.models.spec import tree_leaves
+    from repro_torch.optim.adamw import AdamW
+    from repro_torch.train.trainer import make_train_step
+
+    cfg = get_config("rwkv6-3b", reduced=True).replace(use_flash_kernel=True)
+    model = Model(cfg)
+    params = model.init(torch.Generator().manual_seed(0), "cpu")
+    rng = np.random.default_rng(2)
+    batches = [{"tokens": torch.from_numpy(rng.integers(
+        4, cfg.vocab_size, size=(2, 128)).astype(np.int32))} for _ in range(2)]
+
+    def run(device):
+        p = _to(params, device)
+        opt = AdamW(lr=1e-3)
+        st = opt.init(p)
+        losses = []
+        for stage, b in zip((1, 2), batches):
+            step = make_train_step(model, opt, mask_fn=getattr(
+                schedule, f"stage{stage}_mask"))
+            p, st, met = step(p, st, _to(b, device))
+            losses.append(met["loss"])
+        return p, losses
+
+    before = rw.LAUNCHES
+    gpu, gl = run(dev)
+    # forward, inversion and re-run per layer and step
+    assert rw.LAUNCHES - before == 3 * cfg.num_layers * 2
+    cpu, cl = run("cpu")
+    np.testing.assert_allclose(gl, cl, rtol=0, atol=1e-4)
     for (path, a), (_, b) in zip(tree_leaves(gpu), tree_leaves(cpu)):
         assert (a.cpu() - b).abs().max().item() <= 1e-4, path

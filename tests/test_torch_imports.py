@@ -44,6 +44,9 @@ def test_scan_finds_the_package():
             "src/repro_torch/kernels/moe/ops.py",
             "src/repro_torch/kernels/paged_attention.py",
             "src/repro_torch/kernels/flash_attention.py",
+            "src/repro_torch/kernels/rwkv6_scan.py",
+            "src/repro_torch/kernels/rmsnorm.py",
+            "src/repro_torch/models/ssm.py",
             "src/repro_torch/core/reversible.py",
             "src/repro_torch/core/schedule.py",
             "src/repro_torch/models/model.py",
